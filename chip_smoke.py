@@ -5,12 +5,14 @@
 
 Phases, each fatal on failure:
   1. card    — name and power limit (nvidia-smi);
-  2. build   — every CUDA source of the port with nvcc for sm_90a, timed,
-               with nvcc's register / shared-memory report;
+  2. build   — every CUDA source of the port with nvcc for sm_90a, all at
+               once, timed, with nvcc's register / shared-memory report;
   3. kernels — each kernel against its plain PyTorch version on the card at
-               the main path's shapes and the edge cases, with the stated
-               tolerances; kernel, plain and library times at the main shape
-               from CUDA events, beside the bound the card could reach;
+               the main paths' shapes and the edge cases, with the stated
+               tolerances, and planted faults in the backward's results
+               that the check must refuse; kernel, plain and library times
+               at the main shape from CUDA events, beside the bound the
+               card could reach;
   4. slice   — llama-1b (bf16 weights from a seed) served by the port's
                DecodeSessionCore: three requests (prompts of 2048, 1000 and
                17 tokens, each start + 16 next + end), then one generate with
@@ -18,7 +20,15 @@ Phases, each fatal on failure:
                and read just after; the 2048-token prefill's logits are
                checked against the same model with reference attention,
                and one start and one next are profiled for device time by
-               kernel (torch.profiler).
+               kernel (torch.profiler);
+  5. train   — llama-1b at bench.py's training settings (remat "dots",
+               norm_remat, loss_chunk 128, bf16 weights from a seed) through
+               make_train_step and torch.optim.AdamW: 8 steps on one batch of
+               4 x 1024 tokens with the launch counters set to 0 just before
+               and read just after (fwd 32, dq 16, dkv 16 a step); the loss
+               must be finite and fall; one step with accum_steps=2; one
+               step's loss and gradients against reference attention; step
+               time, tokens/s, MFU, peak memory and one profiled step.
 Then one JSON line of the kernels, and last the device line.  Exits non-zero
 without a result when no CUDA device is present.
 """
@@ -52,6 +62,32 @@ CASES = [
 ]
 PROMPTS = (2048, 1000, 17)
 NEXT_STEPS = 16
+# dQ, dK, dV, two bounds each.  Elementwise, atol = rtol = BWD_TOL: bf16's
+# S and dP come out of the tensor cores in another summation order than the
+# plain fp32 products, so a few P and dS values round to bf16 the other way,
+# and the outputs are rounded to bf16; fp32 differs in summation order only.
+# That bound is as large as many of the gradients, so it guards single
+# elements only.  What fails a wrong kernel is BWD_TILE_TOL, on the relative
+# error of every 64-row tile of each batch and head (ops.tile_rel_err),
+# whatever its scale: a tile, a query head of a group or a key range left
+# out scores 0.1 to 1, bf16's roundings alone about 3e-3 (the plain version
+# in bf16 against fp32 on the CPU).  Planted faults of those kinds must fail
+# it in every case.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_TILE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# (name, b, s_q, s_kv, h, h_kv, d, dtype, causal); the first is the train
+# step's shape: llama-1b, 4 x 1024 tokens
+BWD_CASES = [
+    ("main", 4, 1024, 1024, 32, 8, 64, torch.bfloat16, True),
+    ("s_q<s_kv", 1, 512, 2048, 32, 8, 64, torch.bfloat16, True),
+    ("s_q>s_kv", 1, 2048, 1000, 32, 8, 64, torch.bfloat16, True),
+    ("ragged", 1, 1000, 1000, 32, 8, 64, torch.bfloat16, True),
+    ("non-causal", 2, 1000, 1000, 32, 8, 64, torch.bfloat16, False),
+    ("d128", 1, 2048, 2048, 24, 8, 128, torch.bfloat16, True),
+    ("fp32", 1, 1024, 1024, 32, 8, 64, torch.float32, True),
+    ("MHA", 2, 1024, 1024, 16, 16, 64, torch.bfloat16, True),
+]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
 
 
 def log(*args):
@@ -81,22 +117,32 @@ def qkv(seed, b, s_q, s_kv, h, h_kv, d, dtype):
                           (b, s_kv, h_kv, d))]
 
 
-def attention_bound(b, s_q, s_kv, h, h_kv, d, dtype, causal):
+def randn(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        device="cuda", dtype=dtype)
+
+
+def attention_bound(b, s_q, s_kv, h, h_kv, d, dtype, causal, products=2,
+                    q_like=2, kv_like=2, stats=1):
     """(ms, "operations" | "bytes"): the least time for this call's work —
-    4·d FLOPs per visible (row, key) pair, q/k/v read once and o/lse
-    written once."""
+    2·d FLOPs per visible (row, key) pair for each of its ``products``, and
+    each tensor read or written once: ``q_like`` of shape q, ``kv_like`` of
+    shape k, ``stats`` fp32 [b, h, s_q].  The defaults are the forward's
+    (S and P·V; q, o; k, v; lse)."""
     rows = np.arange(s_q) + (s_kv - s_q)
     pairs = (int(np.clip(rows + 1, 0, s_kv).sum()) if causal
              else s_q * s_kv)
-    flops = 4 * b * h * d * pairs
+    flops = 2 * products * b * h * d * pairs
     elt = torch.finfo(dtype).bits // 8
-    nbytes = elt * b * d * (2 * s_q * h + 2 * s_kv * h_kv) + 4 * b * h * s_q
+    nbytes = (elt * b * d * (q_like * s_q * h + kv_like * s_kv * h_kv)
+              + 4 * stats * b * h * s_q)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def phase_kernels(flash_fwd, flash_attention_plain):
+def phase_kernels(card, flash_fwd, flash_attention_plain):
     log("== kernels: flash_fwd against flash_attention_plain on the card")
     main_err = None
     for name, b, s_q, s_kv, h, h_kv, d, dtype, causal in CASES:
@@ -143,13 +189,139 @@ def phase_kernels(flash_fwd, flash_attention_plain):
     log(f"  main shape timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}); kernel at "
-        f"{100 * bound_ms / ms:.1f}% of the bound")
+        f"{100 * bound_ms / ms:.1f}% of the bound [{card}]")
     return {"name": "flash_fwd", "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "ray_tpu/ops/flash_attention.py:94",
             "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def bwd_matches(got, want, dtype):
+    """→ (agrees, largest tile error) of one of dQ, dK, dV."""
+    from ray_tpu_torch.ops import tile_rel_err
+
+    tol = BWD_TOL[dtype]
+    tile = tile_rel_err(got, want)
+    elementwise = torch.all((got.float() - want.float()).abs()
+                            <= tol + tol * want.float().abs())
+    return (bool(elementwise and torch.isfinite(got).all())
+            and tile <= BWD_TILE_TOL[dtype]), tile
+
+
+def delta_of(o, do):
+    """δ as flash_bwd computes it before the two kernels."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def planted_faults(ops, q, k, v, o, lse, do, causal, scale, got):
+    """{what: (0 dQ | 1 dK | 2 dV, tensor)}: results a wrong kernel could
+    give, each of which the check must refuse."""
+    s_q, h, s_kv, h_kv = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
+    faults = {}
+    for i, what, s in ((0, "dQ, last q tile", s_q),
+                       (1, "dK, last key tile", s_kv),
+                       (2, "dV, last key tile", s_kv)):
+        bad = got[i].clone()
+        bad[:, (s - 1) // 64 * 64:] = 0
+        faults[what + " zeroed"] = (i, bad)
+    if h > h_kv:   # GQA: the first query head of each group left out
+        do_cut = do.clone()
+        do_cut[:, :, ::h // h_kv] = 0
+        dk, dv = ops.flash_bwd_dkv(q, k, v, do_cut, lse, delta_of(o, do_cut),
+                                   causal, scale)
+        faults["dK, a head of each group left out"] = (1, dk)
+        faults["dV, a head of each group left out"] = (2, dv)
+    return faults
+
+
+def phase_bwd_kernels(card, ops):
+    log("== kernels: flash_bwd_dq and flash_bwd_dkv against "
+        "flash_attention_bwd_plain on the card")
+    main_err = {}
+    for name, b, s_q, s_kv, h, h_kv, d, dtype, causal in BWD_CASES:
+        q, k, v = qkv(2, b, s_q, s_kv, h, h_kv, d, dtype)
+        do = randn(3, (b, s_q, h, d), dtype)
+        scale = d ** -0.5
+        o, lse = ops.flash_fwd(q, k, v, causal, scale)
+        got = ops.flash_bwd(q, k, v, o, lse, do, causal, scale)
+        torch.cuda.synchronize()
+        want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                             scale)
+        errs, tiles = [], []
+        for g, w in zip(got, want):
+            ok, tile = bwd_matches(g, w, dtype)
+            errs.append(float((g.float() - w.float()).abs().max()))
+            tiles.append(tile)
+            if not ok:
+                raise AssertionError(f"flash_bwd disagrees with its plain "
+                                     f"version in case {name}: max|err| "
+                                     f"{errs[-1]:.3e}, tile error {tile:.3e}")
+        log(f"  {name:<10} b={b} s_q={s_q} s_kv={s_kv} h={h}/{h_kv} d={d} "
+            f"{str(dtype)[6:]} causal={causal}: max|ddQ|={errs[0]:.3e} "
+            f"max|ddK|={errs[1]:.3e} max|ddV|={errs[2]:.3e} "
+            f"(atol=rtol={BWD_TOL[dtype]:g}); tile error dQ {tiles[0]:.3e} "
+            f"dK {tiles[1]:.3e} dV {tiles[2]:.3e} "
+            f"(<= {BWD_TILE_TOL[dtype]:g})")
+        if causal and s_q > s_kv and not torch.all(got[0][:, :s_q - s_kv]
+                                                   == 0):
+            raise AssertionError("dead rows have a gradient")
+        refused = []
+        for what, (i, bad) in planted_faults(ops, q, k, v, o, lse, do, causal,
+                                             scale, got).items():
+            ok, tile = bwd_matches(bad, want[i], dtype)
+            if ok:
+                raise AssertionError(f"the check let a planted fault pass in "
+                                     f"case {name}: {what}")
+            refused.append(f"{what} {tile:.3g}")
+        log(f"             planted faults refused (tile error): "
+            + "; ".join(refused))
+        if name == "main":
+            main_err = {"flash_bwd_dq": errs[0],
+                        "flash_bwd_dkv": max(errs[1:])}
+        del q, k, v, do, o, lse, got, want
+
+    name, b, s_q, s_kv, h, h_kv, d, dtype, causal = BWD_CASES[0]
+    q, k, v = qkv(5, b, s_q, s_kv, h, h_kv, d, dtype)
+    do = randn(6, (b, s_q, h, d), dtype)
+    scale = d ** -0.5
+    o, lse = ops.flash_fwd(q, k, v, causal, scale)
+    args = (q, k, v, do, lse, delta_of(o, do), causal, scale)
+    # yardstick only, never called by the port: the backward of
+    # scaled_dot_product_attention (dQ, dK and dV in one call)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    rows = []
+    for kernel, plain, counts in (
+            (ops.flash_bwd_dq, ops.flash_bwd_dq_plain,
+             dict(products=3, q_like=3, kv_like=2, stats=2)),
+            (ops.flash_bwd_dkv, ops.flash_bwd_dkv_plain,
+             dict(products=4, q_like=2, kv_like=4, stats=2))):
+        kname = kernel.__name__
+        ms = cuda_ms(lambda: kernel(*args), iters=20)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
+        bound_ms, bound_by = attention_bound(b, s_q, s_kv, h, h_kv, d,
+                                             dtype, causal, **counts)
+        log(f"  {kname} main shape timing: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention backward "
+            f"(dQ+dK+dV) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}); kernel at {100 * bound_ms / ms:.1f}% of the "
+            f"bound [{card}]")
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                     "replaces": ("ray_tpu/ops/flash_attention.py:202"
+                                  if kname == "flash_bwd_dq" else
+                                  "ray_tpu/ops/flash_attention.py:241"),
+                     "max_abs_err": main_err[kname], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms})
+    return rows
 
 
 def phase_slice(card, flash_fwd):
@@ -252,6 +424,105 @@ def phase_slice(card, flash_fwd):
     return launches
 
 
+def phase_train(card, ops):
+    from ray_tpu_torch.models import (TransformerConfig, flops_per_token,
+                                      init_params, lm_loss, make_train_step,
+                                      param_leaves)
+
+    log("== train: llama-1b train step (remat dots, norm_remat, "
+        "loss_chunk 128, bf16 weights), 4 x 1024 tokens")
+    cfg = TransformerConfig.llama("1b", max_seq_len=TRAIN_SEQ, remat="dots",
+                                  norm_remat=True, loss_chunk=128,
+                                  param_dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")}
+    opt = torch.optim.AdamW(param_leaves(params), lr=3e-4, weight_decay=0.1)
+    step = make_train_step(cfg, opt)
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(params, batch)
+        losses.append(float(metrics["loss"]))   # syncs
+        walls.append((time.perf_counter() - t0) * 1e3)
+        log(f"  step {len(losses)}: loss {losses[-1]:.6f} grad_norm "
+            f"{float(metrics['grad_norm']):.6f} wall {walls[-1]:.2f} ms "
+            f"[{card}]")
+    launches = {k.__name__: k.launches for k in kernels}
+    per_step = {name: n / TRAIN_STEPS for name, n in launches.items()}
+    log(f"  launches over {TRAIN_STEPS} steps: {launches} ({per_step} a "
+        f"step; expected fwd 32 = 16 + 16 recomputed under remat 'dots', "
+        f"dq 16, dkv 16)")
+    if per_step != {"flash_fwd": 32, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}:
+        raise AssertionError(f"unexpected launches a step: {per_step}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"loss did not fall: {losses}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.median(walls[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = (flops_per_token(cfg, TRAIN_SEQ) * tokens / (step_ms / 1e3)
+           / PEAK_FLOPS[torch.bfloat16])
+    log(f"  step time {step_ms:.2f} ms (median of steps 2-{TRAIN_STEPS}; "
+        f"first {walls[0]:.2f} ms), {tokens / step_ms * 1e3:.0f} tokens/s, "
+        f"MFU {mfu:.4f} of 989 TFLOP/s, peak memory {peak_gib:.2f} GiB "
+        f"[{card}]")
+
+    accum = make_train_step(cfg, opt, accum_steps=2)(params, batch)
+    accum_loss = float(accum["loss"])
+    log(f"  accum_steps=2: loss {accum_loss:.6f} grad_norm "
+        f"{float(accum['grad_norm']):.6f}")
+    if not np.isfinite(accum_loss):
+        raise AssertionError("accum_steps=2 loss is not finite")
+
+    # the full-width check: one step's loss and gradients, flash against
+    # reference attention, on the same weights
+    names = ("wq", "wk", "wv", "wo", "lm_head")
+    wanted = [params["layers"][n] for n in names[:4]] + [params["lm_head"]]
+    results = {}
+    for impl in ("flash", "reference"):
+        for p in wanted:
+            p.requires_grad_(True)
+        loss = lm_loss(params, batch,
+                       dataclasses.replace(cfg, attention_impl=impl))
+        results[impl] = (float(loss.detach()),
+                         torch.autograd.grad(loss, wanted))
+        for p in wanted:
+            p.requires_grad_(False)
+    (fl, fg), (rl, rg) = results["flash"], results["reference"]
+    rel = abs(fl - rl) / abs(rl)
+    cosines = {n: float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+        for n, a, b in zip(names, fg, rg)}
+    log(f"  flash vs reference attention: loss {fl:.6f} / {rl:.6f} "
+        f"(relative {rel:.3e}, must be <= 1e-2); gradient cosines "
+        + ", ".join(f"{n} {c:.6f}" for n, c in cosines.items())
+        + " (each must be >= 0.99)")
+    if not (rel <= 1e-2 and min(cosines.values()) >= 0.99):
+        raise AssertionError("flash and reference gradients disagree")
+    del fg, rg, results
+
+    # where the time goes: device time by kernel for one step
+    kernels_ms = device_kernel_ms(lambda: step(params, batch))
+    if not kernels_ms:
+        log("  train step: device time not measured (the profiler "
+            "recorded no device activity)")
+    else:
+        busy = sum(kernels_ms.values())
+        log(f"  train step: device busy {busy:.2f} ms of {step_ms:.2f} ms "
+            f"wall ({100 * busy / step_ms:.1f}%), {len(kernels_ms)} kernel "
+            f"names [{card}]")
+        for name, ms in sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"      {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
+    return launches
+
+
 def device_kernel_ms(fn):
     """Device time (ms) by kernel name for one call of ``fn``, from
     torch.profiler; empty where it recorded no device activity."""
@@ -265,7 +536,10 @@ def device_kernel_ms(fn):
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a user annotation (record_function, e.g. Optimizer.step) mirrored
+        # on the device timeline spans kernels counted on their own
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
     return by_name
@@ -276,9 +550,8 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ray_tpu_torch import ops
     from ray_tpu_torch.kernels import build
-    from ray_tpu_torch.ops.flash_attention import (flash_attention_plain,
-                                                   flash_fwd)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -294,10 +567,18 @@ def main():
         log(built.log.rstrip())
     log(f"  build phase {time.perf_counter() - t0:.2f} s")
 
-    kernel = phase_kernels(flash_fwd, flash_attention_plain)
-    kernel["launches"] = phase_slice(card, flash_fwd)
+    rows = [phase_kernels(card, ops.flash_fwd, ops.flash_attention_plain),
+            *phase_bwd_kernels(card, ops)]
+    by_path = {"serve": {"flash_fwd": phase_slice(card, ops.flash_fwd)}}
+    torch.cuda.empty_cache()
+    by_path["train"] = phase_train(card, ops)
+    for row in rows:
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in by_path.items()
+                                   if row["name"] in counts}
+        row["launches"] = sum(row["launches_by_path"].values())
     log(card)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,30 +34,11 @@
 // neither overlaps loads with compute nor uses wgmma or TMA; those are the
 // known distance to the bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstdint>
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-constexpr int BLOCK_M = 64;  // query rows per CTA, 16 per warp
-constexpr int BLOCK_N = 64;  // keys per k-tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -1e30f;  // as the TPU kernel: avoids inf - inf
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
+using namespace flash;
 
 // Shared-memory layout.  Rows carry 16 bytes of padding against bank
 // conflicts; every region and every 16-row warp slice starts on a 32-byte
@@ -74,94 +55,6 @@ struct Layout {
   static constexpr size_t f_off = p_off + sizeof(T) * BLOCK_M * LDP;
   static constexpr size_t bytes = f_off + sizeof(float) * BLOCK_M * LDF;
 };
-
-// Copy rows [row0, row0 + ROWS) of one head of a [b, s, heads, D] tensor
-// into shared memory, 16 bytes a thread; rows at or past `rows_valid` are
-// zero-filled so that padding never feeds a NaN into a product.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          long long row_stride, int row0,
-                                          int rows_valid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = D / VEC;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows_valid)
-      val = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// One warp: S[16, BLOCK_N] = Q_w[16, D] . K[BLOCK_N, D]^T into fp32 `s_w`.
-template <int D>
-__device__ __forceinline__ void warp_qk(const bf16* q_w, const bf16* k_s,
-                                        float* s_w, int lane) {
-  using L = Layout<bf16, D>;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[D / 16];
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(a[kk], q_w + kk * 16, L::LDT);
-  for (int n = 0; n < BLOCK_N; n += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < D / 16; ++kk) {
-      // K^T as a column-major operand: element (d, key) at k_s[key*LDT + d]
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-      wmma::load_matrix_sync(bk, k_s + n * L::LDT + kk * 16, L::LDT);
-      wmma::mma_sync(acc, a[kk], bk, acc);
-    }
-    wmma::store_matrix_sync(s_w + n, acc, L::LDF, wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void warp_qk(const float* q_w, const float* k_s,
-                                        float* s_w, int lane) {
-  using L = Layout<float, D>;
-  const int r = lane >> 1, c0 = (lane & 1) * (BLOCK_N / 2);
-  const float* qr = q_w + r * L::LDT;
-  for (int j = 0; j < BLOCK_N / 2; ++j) {
-    const float* kr = k_s + (c0 + j) * L::LDT;
-    float dot = 0.0f;
-    for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-    s_w[r * L::LDF + c0 + j] = dot;
-  }
-}
-
-// One warp: O_w[16, D] = P_w[16, BLOCK_N] . V[BLOCK_N, D] into fp32 `o_w`.
-template <int D>
-__device__ __forceinline__ void warp_pv(const bf16* p_w, const bf16* v_s,
-                                        float* o_w, int lane) {
-  using L = Layout<bf16, D>;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[BLOCK_N / 16];
-  for (int kk = 0; kk < BLOCK_N / 16; ++kk)
-    wmma::load_matrix_sync(a[kk], p_w + kk * 16, L::LDP);
-  for (int n = 0; n < D; n += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-      wmma::load_matrix_sync(bv, v_s + kk * 16 * L::LDT + n, L::LDT);
-      wmma::mma_sync(acc, a[kk], bv, acc);
-    }
-    wmma::store_matrix_sync(o_w + n, acc, L::LDF, wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void warp_pv(const float* p_w, const float* v_s,
-                                        float* o_w, int lane) {
-  using L = Layout<float, D>;
-  const int r = lane >> 1, c0 = (lane & 1) * (D / 2);
-  const float* pr = p_w + r * L::LDP;
-  for (int j = 0; j < D / 2; ++j) {
-    float dot = 0.0f;
-    for (int n = 0; n < BLOCK_N; ++n)
-      dot = fmaf(pr[n], v_s[n * L::LDT + c0 + j], dot);
-    o_w[r * L::LDF + c0 + j] = dot;
-  }
-}
 
 // Grid: (ceil(s_q / BLOCK_M), h, b).  Inputs are contiguous
 // [b, s, heads, D]; O is [b, s_q, h, D]; LSE is [b, h, s_q].  Lane l of a
@@ -215,7 +108,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D, BLOCK_N>(v_s, L::LDT, v_b, kv_stride, k0, s_kv);
     __syncthreads();
 
-    warp_qk<D>(q_w, k_s, f_w, lane);
+    warp_nt<D>(q_w, L::LDT, k_s, L::LDT, f_w, L::LDF, lane);
     __syncwarp();
 
     // online softmax over this lane's 32 keys of row r
@@ -246,7 +139,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m = m_new;
     __syncwarp();  // P complete; the scores' scratch is free for P V
 
-    warp_pv<D>(p_w, v_s, f_w, lane);
+    warp_nn<D>(p_w, L::LDP, v_s, L::LDT, f_w, L::LDF, lane);
     __syncwarp();
     const float* pv = f_w + r * L::LDF + half * (D / 2);
 #pragma unroll

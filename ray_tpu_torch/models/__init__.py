@@ -1,5 +1,6 @@
 """Model zoo of the port (counterpart of ``ray_tpu.models``): the
-decoder-only transformer family and its whole-prompt generation path."""
+decoder-only transformer family, its whole-prompt generation path, its loss
+and its training step."""
 
 from .generate import (  # noqa: F401
     decode_step,
@@ -17,5 +18,7 @@ from .transformer import (  # noqa: F401
     init_params,
     lm_loss,
     make_train_step,
+    param_leaves,
     param_shapes,
+    remat_policy,
 )

@@ -1,27 +1,31 @@
 """Decoder-only transformer (GPT-2 and Llama families) in PyTorch.
 
-Counterpart of ``ray_tpu/models/transformer.py``, forward only.  Parameters
-are a plain nested dict of tensors in the JAX package's stacked layout
-(``wq`` [L, d, h, hd], ``wo`` [L, h, hd, d], ...), so weights carry across
-with a pure copy (`ray_tpu_torch.convert`).  The layer stack is a Python
-loop over the leading "layers" axis.  Attention goes through
-`ray_tpu_torch.ops.multi_head_attention`, which on the card is the Hopper
-flash kernel.
+Counterpart of ``ray_tpu/models/transformer.py``: the forward, the loss
+and the training step.  Parameters are a plain nested dict of tensors in the
+JAX package's stacked layout (``wq`` [L, d, h, hd], ``wo`` [L, h, hd, d],
+...), so weights carry across with a pure copy (`ray_tpu_torch.convert`).
+The layer stack is a Python loop over the leading "layers" axis, each layer
+under `torch.utils.checkpoint` as ``cfg.remat`` says.  Attention goes
+through `ray_tpu_torch.ops.multi_head_attention`, which on the card is the
+Hopper flash kernels, forward and backward.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
 otherwise: mixture of experts and pipeline stages (the parallelism slice),
-ring attention (the parallelism slice), ``lm_loss`` and ``make_train_step``
-(the training slice).
+ring attention (the parallelism slice).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import multi_head_attention
@@ -49,6 +53,12 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "auto"      # "auto" | "flash" | "reference"
     causal: bool = True               # False → bidirectional (encoders)
+    remat: Any = True                 # False | True (full) | "dots": save
+    #   the outputs of products without batch dimensions, recompute the rest
+    embed_impl: str = "gather"        # "gather" | "one_hot" (matmul)
+    norm_remat: bool = False          # recompute the norms in the backward
+    loss_chunk: int = 0               # >0 → cross entropy [b, chunk, vocab]
+    #   logits at a time, each chunk recomputed in the backward
     pp_stages: int = 1
     n_experts: int = 0
 
@@ -115,7 +125,7 @@ class TransformerConfig:
         defaults = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
                         n_kv_heads=2, max_seq_len=128, pos_emb="rope",
                         activation="swiglu", norm="rmsnorm",
-                        tie_embeddings=False)
+                        tie_embeddings=False, remat=False)
         defaults.update(kw)
         return TransformerConfig(**defaults)
 
@@ -219,6 +229,34 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 # forward
 # ---------------------------------------------------------------------------
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_ONE_HOT_CHUNK = 1024   # tokens per one-hot block: [1024, vocab] at a time
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Policy of ``remat="dots"``: keep the outputs of products with no
+    batch dimensions (``aten.mm`` / ``addmm``: the projections and the
+    FFN), as JAX's `dots_with_no_batch_dims_saveable` does, and recompute
+    everything else, the attention kernel included."""
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(remat) -> Optional[Callable]:
+    """A config's ``remat`` → the ``context_fn`` that `torch.utils.checkpoint`
+    runs each layer under, or None when remat is off."""
+    if not remat:
+        return None
+    if remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+    if remat is True:
+        return noop_context_fn
+    # an unrecognized string must not silently mean full remat
+    raise ValueError(f"remat={remat!r}: expected False, True, or 'dots'")
+
+
 def _norm(cfg, x, scale, bias):
     if cfg.norm == "rmsnorm":
         return rmsnorm(x, scale)
@@ -247,7 +285,11 @@ def _layer_kv(cfg: TransformerConfig, x: torch.Tensor, lp: Params, cos, sin):
     """One transformer block → (x, router aux, k, v); prefill keeps k and v
     for the cache instead of projecting them a second time."""
     dt = cfg.dtype
-    y = _norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_b"))
+    norm = _norm
+    if cfg.norm_remat and torch.is_grad_enabled():
+        # nothing of the norm kept for the backward but its inputs
+        norm = functools.partial(checkpoint, _norm, use_reentrant=False)
+    y = norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_b"))
     q = _heads(y, lp["wq"].to(dt))
     k, v = _project_kv(cfg, y, lp, cos, sin)
     if cfg.pos_emb == "rope":
@@ -255,7 +297,7 @@ def _layer_kv(cfg: TransformerConfig, x: torch.Tensor, lp: Params, cos, sin):
     attn = multi_head_attention(q, k, v, causal=cfg.causal,
                                 impl=cfg.attention_impl)
     x = x + attn.flatten(2) @ lp["wo"].to(dt).flatten(0, 1)
-    y = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_b"))
+    y = norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_b"))
     z, aux = _ffn(cfg, y, lp)
     return x + z, aux, k, v
 
@@ -284,8 +326,20 @@ def _ffn(cfg: TransformerConfig, y: torch.Tensor, lp: Params
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-           positions: slice) -> torch.Tensor:
-    x = params["embed"]["tok"][tokens].to(cfg.dtype)
+           positions: slice, impl: str = "gather") -> torch.Tensor:
+    if impl == "one_hot":
+        # the embedding as a product with one-hot rows, _ONE_HOT_CHUNK
+        # tokens at a time, as the JAX package's MXU formulation
+        emb = params["embed"]["tok"].to(cfg.dtype)
+        x = torch.cat([F.one_hot(t, cfg.vocab_size).to(cfg.dtype) @ emb
+                       for t in tokens.reshape(-1).long().split(
+                           _ONE_HOT_CHUNK)])
+        x = x.reshape(*tokens.shape, cfg.d_model)
+    elif impl == "gather":
+        x = params["embed"]["tok"][tokens].to(cfg.dtype)
+    else:   # a typo must not silently mean the gather path
+        raise ValueError(f"embed_impl={impl!r}: expected 'gather' or "
+                         f"'one_hot'")
     if cfg.pos_emb == "learned":
         x = x + params["embed"]["pos"][positions].to(cfg.dtype)
     return x
@@ -294,15 +348,28 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
 def _trunk(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [b, s] → (hidden [b, s, d] after the final norm, in
-    cfg.dtype; mean router aux)."""
+    cfg.dtype; mean router aux).  While grad is enabled, each layer runs
+    under `torch.utils.checkpoint` as ``cfg.remat`` says and each norm
+    under its own when ``cfg.norm_remat``; without grad it runs plainly."""
     s = tokens.shape[1]
-    x = _embed(params, tokens, cfg, slice(0, s))
+    x = _embed(params, tokens, cfg, slice(0, s), cfg.embed_impl)
     cos, sin = (rotary_angles(s, cfg.head_dim, cfg.rope_base,
                               device=x.device)
                 if cfg.pos_emb == "rope" else (None, None))
+    context_fn = remat_policy(cfg.remat)
+    training = torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # one unbind per stacked weight: its backward stacks the layers'
+    # gradients in one write, as the JAX scan does, where a select per
+    # layer would add a full-size zero-padded gradient once per layer
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
     for i in range(cfg.n_layers):
-        x, aux_l = _layer(cfg, x, _layer_params(params, i), cos, sin)
+        lp = {name: ws[i] for name, ws in layers.items()}
+        if context_fn is not None and training:
+            x, aux_l = checkpoint(_layer, cfg, x, lp, cos, sin,
+                                  use_reentrant=False, context_fn=context_fn)
+        else:
+            x, aux_l = _layer(cfg, x, lp, cos, sin)
         aux = aux + aux_l
     x = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
     return x, aux / cfg.n_layers
@@ -332,13 +399,167 @@ def forward(params: Params, tokens: torch.Tensor,
     return forward_with_aux(params, tokens, cfg)[0]
 
 
+def _chunk_loss_sum(x: torch.Tensor, w32: torch.Tensor,
+                    targets: torch.Tensor, valid: torch.Tensor
+                    ) -> torch.Tensor:
+    """Σ valid · cross entropy of one [b, chunk] block of positions."""
+    logits = x.float() @ w32
+    losses = F.cross_entropy(logits.flatten(0, 1), targets.flatten(),
+                             reduction="none")
+    return (losses * valid.flatten()).sum()
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
             cfg: TransformerConfig) -> torch.Tensor:
-    raise NotImplementedError(
-        "lm_loss is not ported yet: it comes with the training slice")
+    """Next-token cross entropy, fp32.  ``batch`` has "tokens" [b, s] and
+    optionally "mask" [b, s]; the loss is on positions 0..s-2 predicting
+    1..s-1, averaged over the positions whose target the mask keeps.
+
+    With ``cfg.loss_chunk`` set (it must divide s), the unembedding and the
+    softmax run chunk by chunk, each chunk under `torch.utils.checkpoint`,
+    so one [b, chunk, vocab] block of logits exists at a time instead of
+    the full [b, s, vocab] fp32 tensor.  (The router aux term of the JAX
+    loss is 0 here: mixture of experts is not ported.)
+    """
+    # the model runs on the FULL sequence and the logits shift, as in JAX
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    mask = batch.get("mask")
+    if cfg.loss_chunk and s % cfg.loss_chunk:
+        # falling back silently would materialize the full logits — the
+        # memory cliff loss_chunk exists to avoid
+        raise ValueError(f"seq length {s} is not divisible by "
+                         f"loss_chunk={cfg.loss_chunk}")
+    if cfg.loss_chunk:
+        x, _ = _trunk(params, tokens, cfg)
+        # fp32 accumulation of cfg.dtype operands, as forward_with_aux
+        w32 = _unembed(params, cfg).float()
+        # the LAST position's target is a dummy 0 with weight 0
+        zero = torch.zeros((b, 1), dtype=tokens.dtype, device=tokens.device)
+        targets = torch.cat([tokens[:, 1:], zero], dim=1).long()
+        valid = torch.ones((b, s), dtype=torch.float32, device=x.device)
+        valid[:, -1] = 0.0
+        if mask is not None:
+            valid[:, :-1] *= mask[:, 1:].float()
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, cfg.loss_chunk):
+            part = (x[:, i:i + cfg.loss_chunk], w32,
+                    targets[:, i:i + cfg.loss_chunk],
+                    valid[:, i:i + cfg.loss_chunk])
+            if torch.is_grad_enabled():
+                total = total + checkpoint(_chunk_loss_sum, *part,
+                                           use_reentrant=False)
+            else:
+                total = total + _chunk_loss_sum(*part)
+        return total / valid.sum().clamp_min(1.0)
+
+    logits, _ = forward_with_aux(params, tokens, cfg)
+    losses = F.cross_entropy(logits[:, :-1].flatten(0, 1),
+                             tokens[:, 1:].flatten().long(),
+                             reduction="none").view(b, s - 1)
+    if mask is not None:
+        m = mask[:, 1:].float()
+        return (losses * m).sum() / m.sum().clamp_min(1.0)
+    return losses.mean()
 
 
-def make_train_step(cfg: TransformerConfig, optimizer, accum_steps: int = 1):
-    raise NotImplementedError(
-        "make_train_step is not ported yet: it comes with the training "
-        "slice")
+def param_leaves(params: Params) -> List[torch.Tensor]:
+    """The parameter tensors in the order ``jax.tree_util.tree_leaves``
+    gives for the same tree (keys sorted at every level): the tensors to
+    build the optimizer of `make_train_step` over."""
+    leaves = []
+    for key in sorted(params):
+        node = params[key]
+        leaves.extend(param_leaves(node) if isinstance(node, dict)
+                      else [node])
+    return leaves
+
+
+def _with_leaves(params: Params, leaves: List[torch.Tensor]) -> Params:
+    """``params``' tree with its tensors replaced by ``leaves``, given in
+    `param_leaves` order."""
+    it = iter(leaves)
+
+    def walk(node):
+        return {key: walk(node[key]) if isinstance(node[key], dict)
+                else next(it) for key in sorted(node)}
+
+    return walk(params)
+
+
+def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer,
+                    accum_steps: int = 1):
+    """→ ``step(params, batch) -> {"loss", "grad_norm"}``, the JAX package's
+    train step.  Unlike the JAX step, which is pure, it updates ``params``
+    and the optimizer's state IN PLACE: ``optimizer`` is a
+    `torch.optim.Optimizer` built over ``param_leaves(params)``; the step
+    hands it the gradients as each tensor's ``.grad``, calls its ``step()``
+    and clears the ``.grad`` again.  Both metrics are 0-d fp32 tensors on
+    the parameters' device; ``grad_norm`` is the L2 norm of the gradients
+    before the update.
+
+    ``accum_steps > 1`` splits every batch leaf into that many
+    microbatches and weights each microbatch's gradient by its count of
+    valid target tokens, so the step equals the full-batch one even when a
+    mask is uneven across microbatches; the weighted sum is taken in fp32
+    and cast back to each parameter's dtype.
+    """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps={accum_steps}: must be >= 1")
+
+    def grads_of(params, leaves, batch):
+        # the gradients w.r.t. aliases of the parameters, so the caller's
+        # tensors keep requires_grad as they were
+        alias = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = lm_loss(_with_leaves(params, alias), batch, cfg)
+            grads = torch.autograd.grad(loss, alias)
+        return loss.detach(), grads
+
+    def step(params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        leaves = param_leaves(params)
+        owned = {id(p) for group in optimizer.param_groups
+                 for p in group["params"]}
+        if owned != {id(p) for p in leaves}:
+            raise ValueError("the optimizer must be built over "
+                             "param_leaves(params)")
+        if accum_steps > 1:
+            full = batch["tokens"].shape[0]
+            if full % accum_steps:
+                raise ValueError(f"batch {full} not divisible by "
+                                 f"accum_steps {accum_steps}")
+            micro = full // accum_steps
+            f32 = dict(dtype=torch.float32, device=leaves[0].device)
+            gsum = [torch.zeros(p.shape, **f32) for p in leaves]
+            lsum = torch.zeros((), **f32)
+            csum = torch.zeros((), **f32)
+            for i in range(accum_steps):
+                # every batch leaf (tokens, mask, ...) splits on the batch
+                # axis, so each microbatch loss sees the same keys
+                mb = {key: val[i * micro:(i + 1) * micro]
+                      for key, val in batch.items()}
+                loss, grads = grads_of(params, leaves, mb)
+                if "mask" in mb:
+                    count = mb["mask"][:, 1:].float().sum()
+                else:
+                    count = torch.tensor(
+                        float(micro * (mb["tokens"].shape[1] - 1)), **f32)
+                for acc, g in zip(gsum, grads):
+                    acc.add_(g.float() * count)
+                lsum = lsum + loss * count
+                csum = csum + count
+            csum = csum.clamp_min(1.0)
+            grads = [(acc / csum).to(p.dtype) for acc, p in zip(gsum, leaves)]
+            loss = lsum / csum
+        else:
+            loss, grads = grads_of(params, leaves, batch)
+        grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        optimizer.step()
+        for p in leaves:
+            p.grad = None
+        return {"loss": loss, "grad_norm": grad_norm}
+
+    return step

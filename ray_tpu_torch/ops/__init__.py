@@ -1,5 +1,5 @@
 """Operator library of the port (counterpart of ``ray_tpu.ops``): norms,
-rotary embeddings, and attention with the Hopper flash kernel."""
+rotary embeddings, and attention with the Hopper flash kernels."""
 
 from .norms import layernorm, rmsnorm  # noqa: F401
 from .rotary import apply_rotary, rotary_angles  # noqa: F401
@@ -10,6 +10,13 @@ from .attention import (  # noqa: F401
 )
 from .flash_attention import (  # noqa: F401
     flash_attention,
+    flash_attention_bwd_plain,
     flash_attention_plain,
+    flash_bwd,
+    flash_bwd_dkv,
+    flash_bwd_dkv_plain,
+    flash_bwd_dq,
+    flash_bwd_dq_plain,
     flash_fwd,
+    tile_rel_err,
 )

@@ -13,7 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.ops.flash_attention import flash_attention_plain, flash_fwd
+from ray_tpu_torch.ops.flash_attention import (flash_attention_bwd_plain,
+                                               flash_attention_plain,
+                                               flash_bwd, flash_bwd_dkv,
+                                               flash_bwd_dq, flash_fwd,
+                                               tile_rel_err)
 
 pytestmark = pytest.mark.gpu
 
@@ -21,6 +25,25 @@ DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 # (O atol = rtol, LSE atol): bf16 rounds P and O at other block boundaries
 # than the plain version, fp32 differs only in summation order
 TOL = {"bf16": (2e-2, 1e-3), "fp32": (1e-4, 1e-4)}
+# dQ, dK, dV atol = rtol.  bf16: S and dP come out of the tensor cores in
+# another summation order than the plain fp32 products, so P and dS round
+# to bf16 differently in a few places, and the outputs are rounded to bf16;
+# fp32: summation order only (dK and dV sum over up to 4 heads x 2048 rows).
+# That bound guards single elements; what fails a wrong kernel is the tile
+# error (tile_rel_err, every 64-row tile of each batch and head, whatever its
+# scale): bf16's roundings alone score about 3e-3 there.
+BWD_TOL = {"bf16": 2e-2, "fp32": 1e-4}
+BWD_TILE_TOL = {"bf16": 1e-2, "fp32": 1e-4}
+CASES = [
+    (1, 2048, 2048, 32, 8, 64, "bf16", True),    # llama-1b prefill shape
+    (1, 256, 1000, 32, 8, 64, "bf16", True),     # s_q < s_kv
+    (1, 1000, 256, 8, 2, 64, "bf16", True),      # s_q > s_kv: dead rows
+    (2, 1000, 1000, 8, 8, 64, "bf16", True),     # ragged tiles, MHA
+    (1, 512, 700, 8, 2, 64, "bf16", False),      # non-causal
+    (1, 1024, 1024, 16, 4, 128, "bf16", True),   # head_dim 128
+    (1, 300, 300, 4, 2, 64, "fp32", True),       # fp32
+    (1, 300, 500, 4, 2, 128, "fp32", False),     # fp32, d 128, non-causal
+]
 
 
 @pytest.fixture
@@ -38,16 +61,7 @@ def _qkv(seed, b, s_q, s_kv, h, h_kv, d, dtype, device):
                           (b, s_kv, h_kv, d))]
 
 
-@pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,d,dtype,causal", [
-    (1, 2048, 2048, 32, 8, 64, "bf16", True),    # llama-1b prefill shape
-    (1, 256, 1000, 32, 8, 64, "bf16", True),     # s_q < s_kv
-    (1, 1000, 256, 8, 2, 64, "bf16", True),      # s_q > s_kv: dead rows
-    (2, 1000, 1000, 8, 8, 64, "bf16", True),     # ragged tiles, MHA
-    (1, 512, 700, 8, 2, 64, "bf16", False),      # non-causal
-    (1, 1024, 1024, 16, 4, 128, "bf16", True),   # head_dim 128
-    (1, 300, 300, 4, 2, 64, "fp32", True),       # fp32
-    (1, 300, 500, 4, 2, 128, "fp32", False),     # fp32, d 128, non-causal
-])
+@pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,d,dtype,causal", CASES)
 def test_flash_fwd_matches_plain(cuda, b, s_q, s_kv, h, h_kv, d, dtype,
                                  causal):
     q, k, v = _qkv(0, b, s_q, s_kv, h, h_kv, d, dtype, cuda)
@@ -76,3 +90,65 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take(cuda):
     q96, k96, v96 = _qkv(1, 1, 64, 64, 4, 2, 96, "bf16", cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_fwd(q96, k96, v96, True, 0.125)
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,d,dtype,causal", [
+    (4, 1024, 1024, 32, 8, 64, "bf16", True),    # llama-1b training shape
+    *CASES[1:]])
+def test_flash_bwd_matches_plain(cuda, b, s_q, s_kv, h, h_kv, d, dtype,
+                                 causal):
+    q, k, v = _qkv(2, b, s_q, s_kv, h, h_kv, d, dtype, cuda)
+    do = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (b, s_q, h, d), dtype=np.float32)).to(device=cuda,
+                                              dtype=DTYPES[dtype])
+    scale = d ** -0.5
+    o, lse = flash_fwd(q, k, v, causal, scale)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    grads = flash_bwd(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    tol = BWD_TOL[dtype]
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol, msg=name)
+        assert tile_rel_err(got, ref) <= BWD_TILE_TOL[dtype], name
+    if causal and s_q > s_kv:   # rows that see no key get no gradient
+        assert torch.all(grads[0][:, :s_q - s_kv] == 0)
+
+
+def test_flash_bwd_tile_error_refuses_planted_faults(cuda):
+    """A dK/dV kernel that left out one query head of each group, and a
+    kernel that dropped the last key tile, fail the tile bound."""
+    q, k, v = _qkv(4, 2, 1000, 1000, 32, 8, 64, "bf16", cuda)
+    do = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        q.shape, dtype=np.float32)).to(device=cuda, dtype=torch.bfloat16)
+    o, lse = flash_fwd(q, k, v, True, 0.125)
+    _, dk, dv = flash_bwd(q, k, v, o, lse, do, True, 0.125)
+    do[:, :, ::4] = 0
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    faults = list(zip((dk, dv), flash_bwd_dkv(q, k, v, do, lse, delta, True,
+                                              0.125)))
+    for good in (dk, dv):
+        bad = good.clone()
+        bad[:, 960:] = 0
+        faults.append((good, bad))
+    for good, bad in faults:
+        assert tile_rel_err(bad, good) > 10 * BWD_TILE_TOL["bf16"]
+
+
+def test_flash_bwd_rejects_what_the_kernels_do_not_take(cuda):
+    q, k, v = _qkv(1, 1, 64, 64, 4, 2, 64, "bf16", cuda)
+    o, lse = flash_fwd(q, k, v, True, 0.125)
+    delta = torch.zeros_like(lse)
+    with pytest.raises(TypeError, match="dO"):
+        flash_bwd_dq(q, k, v, o.float(), lse, delta, True, 0.125)
+    with pytest.raises(TypeError, match="lse"):
+        flash_bwd_dkv(q, k, v, o, lse.bfloat16(), delta, True, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_bwd_dq(q, k, v, o, lse, delta.transpose(1, 2).contiguous()
+                     .transpose(1, 2), True, 0.125)
+    with pytest.raises(ValueError, match="device"):
+        flash_bwd_dkv(q, k, v, o, lse.cpu(), delta, True, 0.125)

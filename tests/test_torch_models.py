@@ -189,10 +189,6 @@ def test_init_params_and_unported_paths():
                dict(attention_impl="ring")):
         with pytest.raises(NotImplementedError, match="parallelism slice"):
             ttr.TransformerConfig.tiny(**kw)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ttr.lm_loss(a, {}, cfg)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ttr.make_train_step(cfg, None)
 
 
 def test_params_from_numpy_copies_bf16_bits_and_checks_layout():

@@ -1,10 +1,12 @@
 """The port's ops (``ray_tpu_torch.ops``) against their JAX counterparts on
 the CPU: the same numpy inputs, made from a seed, go through both.
 
-The flash kernel's plain version is held against the Pallas kernel itself,
-run through the Pallas interpreter as the JAX package's own tests run it.
+The flash kernels' plain versions, forward and backward, are held against
+the Pallas kernels themselves, run through the Pallas interpreter as the JAX
+package's own tests run them.
 """
 
+import functools
 import importlib
 import subprocess
 import sys
@@ -108,13 +110,114 @@ def test_flash_wrapper_on_cpu_runs_plain_version_and_checks_inputs():
                        True, 1.0)
 
 
-def test_flash_backward_names_the_training_slice():
+# dQ, dK, dV atol = rtol.  fp32: summation order only (measured up to 2e-6
+# at |grad| <= 5).  bf16: both round P and dS to bf16 and the results to
+# bf16; S and dP come out of products summed in another order, so a value
+# may round the other way, one bf16 step (2**-8 relative).
+FLASH_BWD_TOL = {"fp32": 1e-5, "bf16": 1e-2}
+
+
+@pytest.mark.parametrize("dtype,b,s_q,s_kv,h,h_kv,causal", [
+    ("fp32", 1, 64, 64, 4, 2, True),     # GQA, causal, s_q = s_kv
+    ("bf16", 1, 64, 64, 4, 2, True),
+    ("fp32", 2, 64, 64, 2, 2, True),     # MHA
+    ("bf16", 1, 32, 64, 4, 2, True),     # s_q < s_kv
+    ("fp32", 1, 64, 32, 4, 2, True),     # s_q > s_kv: dead rows
+    ("bf16", 1, 64, 32, 4, 2, True),
+    ("fp32", 1, 32, 64, 4, 2, False),    # non-causal
+    ("bf16", 1, 64, 64, 4, 1, False),
+])
+def test_flash_bwd_plain_matches_pallas_kernels(monkeypatch, dtype, b, s_q,
+                                               s_kv, h, h_kv, causal):
+    monkeypatch.setenv("RAY_TPU_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(8)
+    d = 64
+    (jq, q), (jk, k), (jv, v), (jdo, do) = (
+        _pair(rng, (b, s_q, h, d), dtype), _pair(rng, (b, s_kv, h_kv, d), dtype),
+        _pair(rng, (b, s_kv, h_kv, d), dtype), _pair(rng, (b, s_q, h, d), dtype))
+    scale = d ** -0.5
+    # the forward's residuals from the port's plain version, given to both
+    o, lse = tops.flash_attention_plain(q, k, v, causal, scale)
+    jo = jnp.asarray(_np(o)).astype(JNP[dtype])
+    jlse = jnp.asarray(_np(lse))[..., None]
+    # block_q 16, block_k 16: several blocks each way, skipped blocks too
+    t = functools.partial(jnp.swapaxes, axis1=1, axis2=2)
+    want = jflash._flash_bwd(t(jq), t(jk), t(jv), t(jo), jlse, t(jdo),
+                             causal, scale, 16, 16)
+    got = tops.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    tol = FLASH_BWD_TOL[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == TORCH[dtype], name
+        np.testing.assert_allclose(_np(g), _np(t(w)), atol=tol, rtol=tol,
+                                   err_msg=name)
+    if causal and s_q > s_kv:   # rows that see no key get no gradient
+        assert not _np(got[0][:, :s_q - s_kv]).any()
+
+
+@pytest.mark.parametrize("s_q,s_kv,h,h_kv,causal", [
+    (64, 64, 4, 2, True),      # GQA, causal, s_q = s_kv
+    (72, 40, 4, 2, True),      # s_q > s_kv: dead rows, ragged tiles
+    (40, 56, 4, 1, False),     # non-causal, ragged tiles
+])
+def test_tile_rel_err_passes_rounding_and_refuses_planted_faults(
+        s_q, s_kv, h, h_kv, causal):
+    """The tile error that holds the backward kernels on the card: bf16
+    rounding alone stays under its bf16 bound (1e-2); a tile, a key range or
+    a query head of each group left out scores far above it."""
+    rng = np.random.default_rng(9)
+    d, scale = 64, 64 ** -0.5
+    q, k, v, do = (_pair(rng, shape, "bf16")[1] for shape in (
+        (2, s_q, h, d), (2, s_kv, h_kv, d), (2, s_kv, h_kv, d), (2, s_q, h, d)))
+    o, lse = tops.flash_attention_plain(q, k, v, causal, scale)
+    got = tops.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    assert all(tops.tile_rel_err(g, g.clone(), 16) == 0 for g in got)
+    # the same inputs in fp32: only bf16's roundings of O, P, dS and the
+    # results differ
+    f32 = [t.float() for t in (q, k, v, do)]
+    o32, lse32 = tops.flash_attention_plain(*f32[:3], causal, scale)
+    want = tops.flash_attention_bwd_plain(*f32[:3], o32, lse32, f32[3],
+                                          causal, scale)
+    for g, w in zip(got, want):
+        assert tops.tile_rel_err(g, w, 16) < 1e-2
+    faults = []
+    for i, s in ((0, s_q), (1, s_kv), (2, s_kv)):
+        bad = got[i].clone()
+        bad[:, (s - 1) // 16 * 16:] = 0
+        faults.append((i, bad))
+    do_cut = do.clone()
+    do_cut[:, :, ::h // h_kv] = 0
+    delta_cut = (do_cut.float() * o.float()).sum(-1).transpose(1, 2)
+    faults += enumerate(tops.flash_bwd_dkv_plain(
+        q, k, v, do_cut, lse, delta_cut.contiguous(), causal, scale), 1)
+    for i, bad in faults:
+        assert tops.tile_rel_err(bad, got[i], 16) > 0.1
+    if causal and s_q > s_kv:   # dead rows: zero against zero, else inf
+        assert tops.tile_rel_err(got[0][:, :16], got[0][:, :16]) == 0
+        assert tops.tile_rel_err(got[0][:, :16] + 1, got[0][:, :16]) == (
+            float("inf"))
+
+
+def test_flash_autograd_on_cpu_is_the_plain_backward():
     rng = np.random.default_rng(2)
-    q, k, v = (_pair(rng, (1, 8, 2, 64), "fp32")[1] for _ in range(3))
-    q.requires_grad_(True)
-    out = tops.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="_bwd_dq_kernel"):
-        out.sum().backward()
+    q, k, v, do = (_pair(rng, shape, "bf16")[1] for shape in (
+        (2, 24, 4, 64), (2, 40, 2, 64), (2, 40, 2, 64), (2, 24, 4, 64)))
+    counts = (tops.flash_fwd.launches, tops.flash_bwd_dq.launches,
+              tops.flash_bwd_dkv.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = tops.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    o, lse = tops.flash_attention_plain(q, k, v, True, 64 ** -0.5)
+    want = tops.flash_attention_bwd_plain(q, k, v, o, lse, do, True,
+                                          64 ** -0.5)
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+    # the plain versions are no launches
+    assert counts == (tops.flash_fwd.launches, tops.flash_bwd_dq.launches,
+                      tops.flash_bwd_dkv.launches)
+    with pytest.raises(TypeError, match="lse"):
+        tops.flash_bwd_dq(q, k, v, do, lse[:, :, :4], lse, True, 1.0)
+    with pytest.raises(TypeError, match="dO"):
+        tops.flash_bwd_dkv(q, k, v, do.float(), lse, lse, True, 1.0)
 
 
 # -- norms, rotary, attention -------------------------------------------------
