@@ -6,13 +6,16 @@
 Phases, each fatal on failure:
   1. card    — name and power limit (nvidia-smi);
   2. build   — every CUDA source of the port with nvcc for sm_90a, all at
-               once, timed, with nvcc's register / shared-memory report;
+               once, timed, with nvcc's register / shared-memory report; a
+               wgmma that ptxas serialises, or a spill in the Hopper forward
+               kernel, fails it;
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main paths' shapes and the edge cases, with the stated
-               tolerances, and planted faults in the backward's results
-               that the check must refuse; kernel, plain and library times
-               at the main shape from CUDA events, beside the bound the
-               card could reach;
+               tolerances (elementwise and per 64-row tile), and planted
+               faults in the kernels' results that the check must refuse;
+               kernel, plain and library times from CUDA events beside the
+               bound the card could reach, at the main shape (the forward
+               at both main paths' shapes, with its host time per call);
   4. slice   — llama-1b (bf16 weights from a seed) served by the port's
                DecodeSessionCore: three requests (prompts of 2048, 1000 and
                17 tokens, each start + 16 next + end), then one generate with
@@ -36,6 +39,7 @@ without a result when no CUDA device is present.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -49,10 +53,21 @@ PEAK_BYTES = 3.35e12                                          # H100 SXM HBM3
 # bf16 rounds P and O at other block boundaries than the plain version;
 # fp32 differs only in summation order.
 TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
-# (name, b, s_q, s_kv, h, h_kv, d, dtype, causal); the first is the main
-# path's shape: llama-1b, one 2048-token prompt
+# The elementwise bounds are as large as many values of O and of the
+# gradients, so they guard single elements only.  What fails a wrong kernel
+# is TILE_TOL, on the relative error of every 64-row tile of each batch and
+# head (ops.tile_rel_err), whatever its scale: a tile, a query head of a
+# group, a KV head or a key range left out scores 0.1 to 1.5, bf16's
+# roundings alone about 2.4e-3 (O) and 3e-3 (gradients), the plain version
+# in bf16 against fp32 on the CPU.  Planted faults of those kinds must fail
+# it in every bf16 case.
+TILE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# (name, b, s_q, s_kv, h, h_kv, d, dtype, causal); the first is the serve
+# path's shape (llama-1b, one 2048-token prompt), the second the train
+# step's (4 x 1024 tokens)
 CASES = [
     ("main", 1, 2048, 2048, 32, 8, 64, torch.bfloat16, True),
+    ("train", 4, 1024, 1024, 32, 8, 64, torch.bfloat16, True),
     ("s_q<s_kv", 1, 512, 2048, 32, 8, 64, torch.bfloat16, True),
     ("s_q>s_kv", 1, 2048, 1000, 32, 8, 64, torch.bfloat16, True),
     ("ragged", 1, 1000, 1000, 32, 8, 64, torch.bfloat16, True),
@@ -62,19 +77,12 @@ CASES = [
 ]
 PROMPTS = (2048, 1000, 17)
 NEXT_STEPS = 16
-# dQ, dK, dV, two bounds each.  Elementwise, atol = rtol = BWD_TOL: bf16's
-# S and dP come out of the tensor cores in another summation order than the
-# plain fp32 products, so a few P and dS values round to bf16 the other way,
-# and the outputs are rounded to bf16; fp32 differs in summation order only.
-# That bound is as large as many of the gradients, so it guards single
-# elements only.  What fails a wrong kernel is BWD_TILE_TOL, on the relative
-# error of every 64-row tile of each batch and head (ops.tile_rel_err),
-# whatever its scale: a tile, a query head of a group or a key range left
-# out scores 0.1 to 1, bf16's roundings alone about 3e-3 (the plain version
-# in bf16 against fp32 on the CPU).  Planted faults of those kinds must fail
-# it in every case.
+# dQ, dK, dV, elementwise, atol = rtol = BWD_TOL: bf16's S and dP come out
+# of the tensor cores in another summation order than the plain fp32
+# products, so a few P and dS values round to bf16 the other way, and the
+# outputs are rounded to bf16; fp32 differs in summation order only.  Each
+# is also held to TILE_TOL.
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-BWD_TILE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # (name, b, s_q, s_kv, h, h_kv, d, dtype, causal); the first is the train
 # step's shape: llama-1b, 4 x 1024 tokens
 BWD_CASES = [
@@ -88,6 +96,7 @@ BWD_CASES = [
     ("MHA", 2, 1024, 1024, 16, 16, 64, torch.bfloat16, True),
 ]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+HOST_CALLS = 200   # wrapper calls timed on the host clock, no sync inside
 
 
 def log(*args):
@@ -142,41 +151,29 @@ def attention_bound(b, s_q, s_kv, h, h_kv, d, dtype, causal, products=2,
                                        else "bytes")
 
 
-def phase_kernels(card, flash_fwd, flash_attention_plain):
-    log("== kernels: flash_fwd against flash_attention_plain on the card")
-    main_err = None
-    for name, b, s_q, s_kv, h, h_kv, d, dtype, causal in CASES:
-        q, k, v = qkv(0, b, s_q, s_kv, h, h_kv, d, dtype)
-        scale = d ** -0.5
-        o, lse = flash_fwd(q, k, v, causal, scale)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = flash_attention_plain(q, k, v, causal, scale)
-        tol_o, tol_lse = TOL[dtype]
-        err_o = (o.float() - o_ref.float()).abs()
-        err_lse = float((lse - lse_ref).abs().max())
-        ok_o = bool(torch.all(err_o <= tol_o + tol_o * o_ref.float().abs()))
-        log(f"  {name:<10} b={b} s_q={s_q} s_kv={s_kv} h={h}/{h_kv} d={d} "
-            f"{str(dtype)[6:]} causal={causal}: max|dO|={float(err_o.max()):.3e}"
-            f" (atol=rtol={tol_o:g}) max|dLSE|={err_lse:.3e} "
-            f"(atol={tol_lse:g})")
-        if not (ok_o and err_lse <= tol_lse and torch.isfinite(o).all()):
-            raise AssertionError(f"flash_fwd disagrees with its plain "
-                                 f"version in case {name}")
-        if causal and s_q > s_kv:   # rows that see no key
-            dead = s_q - s_kv
-            if not (torch.all(o[:, :dead] == 0)
-                    and torch.all(lse[:, :, :dead] == 0)):
-                raise AssertionError("dead rows are not O = 0, LSE = 0")
-        if name == "main":
-            main_err = float(err_o.max())
-        del q, k, v, o, lse, o_ref, lse_ref, err_o
+def fwd_matches(o, lse, o_ref, lse_ref, dtype):
+    """→ (agrees, max |ΔO|, max |ΔLSE|, largest tile error of O)."""
+    from ray_tpu_torch.ops import tile_rel_err
 
-    name, b, s_q, s_kv, h, h_kv, d, dtype, causal = CASES[0]
-    q, k, v = qkv(1, b, s_q, s_kv, h, h_kv, d, dtype)
+    tol_o, tol_lse = TOL[dtype]
+    err_o = (o.float() - o_ref.float()).abs()
+    err_lse = float((lse - lse_ref).abs().max())
+    tile = tile_rel_err(o, o_ref)
+    ok = (bool(torch.all(err_o <= tol_o + tol_o * o_ref.float().abs()))
+          and err_lse <= tol_lse and tile <= TILE_TOL[dtype]
+          and bool(torch.isfinite(o).all()))
+    return ok, float(err_o.max()), err_lse, tile
+
+
+def time_fwd(card, ops, what, b, s, h, h_kv, d, dtype):
+    """Kernel, plain, library and host times of the forward at one shape
+    (causal, s_q = s_kv = s), beside its bound."""
+    q, k, v = qkv(1, b, s, s, h, h_kv, d, dtype)
     scale = d ** -0.5
-    ms = cuda_ms(lambda: flash_fwd(q, k, v, causal, scale), iters=50)
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal, scale),
-                       iters=5, warmup=1)
+    ms = cuda_ms(lambda: ops.flash_fwd(q, k, v, True, scale), iters=50)
+    plain_ms = cuda_ms(
+        lambda: ops.flash_attention_plain(q, k, v, True, scale), iters=5,
+        warmup=1)
     # yardstick only, never called by the port: at s_q = s_kv its top-left
     # causal mask is the same as the bottom-right one
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -184,18 +181,78 @@ def phase_kernels(card, flash_fwd, flash_attention_plain):
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True),
         iters=50)
-    bound_ms, bound_by = attention_bound(b, s_q, s_kv, h, h_kv, d, dtype,
-                                         causal)
-    log(f"  main shape timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
-        f"{100 * bound_ms / ms:.1f}% of the bound [{card}]")
+    # the wrapper's host time per call: checks, allocation, the tensor maps,
+    # the launch; the card runs behind
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        ops.flash_fwd(q, k, v, True, scale)
+    host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    bound_ms, bound_by = attention_bound(b, s, s, h, h_kv, d, dtype, True)
+    log(f"  {what} shape (b={b} s={s}) timing: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} "
+        f"ms ({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}); "
+        f"kernel at {100 * bound_ms / ms:.1f}% of the bound; wrapper host "
+        f"time {host_us:.1f} us a call [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "host_us": host_us}
+
+
+def phase_kernels(card, ops):
+    log("== kernels: flash_fwd against flash_attention_plain on the card")
+    main_err = None
+    for name, b, s_q, s_kv, h, h_kv, d, dtype, causal in CASES:
+        q, k, v = qkv(0, b, s_q, s_kv, h, h_kv, d, dtype)
+        scale = d ** -0.5
+        o, lse = ops.flash_fwd(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = ops.flash_attention_plain(q, k, v, causal, scale)
+        ok, err_o, err_lse, tile = fwd_matches(o, lse, o_ref, lse_ref, dtype)
+        tol_o, tol_lse = TOL[dtype]
+        log(f"  {name:<10} b={b} s_q={s_q} s_kv={s_kv} h={h}/{h_kv} d={d} "
+            f"{str(dtype)[6:]} causal={causal}: max|dO|={err_o:.3e} "
+            f"(atol=rtol={tol_o:g}) max|dLSE|={err_lse:.3e} "
+            f"(atol={tol_lse:g}); tile error {tile:.3e} "
+            f"(<= {TILE_TOL[dtype]:g})")
+        if not ok:
+            raise AssertionError(f"flash_fwd disagrees with its plain "
+                                 f"version in case {name}")
+        if causal and s_q > s_kv:   # rows that see no key
+            dead = s_q - s_kv
+            if not (torch.all(o[:, :dead] == 0)
+                    and torch.all(lse[:, :, :dead] == 0)):
+                raise AssertionError("dead rows are not O = 0, LSE = 0")
+        if dtype == torch.bfloat16:
+            faults = ops.planted_fwd_faults(ops.flash_fwd, q, k, v, o,
+                                            causal, scale)
+            refused = []
+            for what, bad in faults.items():
+                if fwd_matches(bad, lse, o_ref, lse_ref, dtype)[0]:
+                    raise AssertionError(f"the check let a planted fault "
+                                         f"pass in case {name}: {what}")
+                refused.append(f"{what} {ops.tile_rel_err(bad, o_ref):.3g}")
+            if len(refused) != 3:
+                raise AssertionError(f"case {name} planted {len(refused)} "
+                                     f"of the 3 faults")
+            log(f"             planted faults refused (tile error): "
+                + "; ".join(refused))
+        if name == "main":
+            main_err = err_o
+        del q, k, v, o, lse, o_ref, lse_ref
+
+    by_shape = {what: time_fwd(card, ops, what, b, s_q, h, h_kv, d, dtype)
+                for what, (_, b, s_q, _, h, h_kv, d, dtype, _)
+                in zip(("serve", "train"), CASES)}
+    serve = by_shape["serve"]
     return {"name": "flash_fwd", "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "ray_tpu/ops/flash_attention.py:94",
-            "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": main_err, "ms": serve["ms"],
+            "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
+            "bound_by": serve["bound_by"], "library_ms": serve["library_ms"],
+            "by_shape": by_shape}
 
 
 def bwd_matches(got, want, dtype):
@@ -207,7 +264,7 @@ def bwd_matches(got, want, dtype):
     elementwise = torch.all((got.float() - want.float()).abs()
                             <= tol + tol * want.float().abs())
     return (bool(elementwise and torch.isfinite(got).all())
-            and tile <= BWD_TILE_TOL[dtype]), tile
+            and tile <= TILE_TOL[dtype]), tile
 
 
 def delta_of(o, do):
@@ -263,7 +320,7 @@ def phase_bwd_kernels(card, ops):
             f"max|ddK|={errs[1]:.3e} max|ddV|={errs[2]:.3e} "
             f"(atol=rtol={BWD_TOL[dtype]:g}); tile error dQ {tiles[0]:.3e} "
             f"dK {tiles[1]:.3e} dV {tiles[2]:.3e} "
-            f"(<= {BWD_TILE_TOL[dtype]:g})")
+            f"(<= {TILE_TOL[dtype]:g})")
         if causal and s_q > s_kv and not torch.all(got[0][:, :s_q - s_kv]
                                                    == 0):
             raise AssertionError("dead rows have a gradient")
@@ -414,11 +471,10 @@ def phase_slice(card, flash_fwd):
                 f"recorded no device activity)")
             continue
         busy = sum(kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
         log(f"  {what}: device busy {busy:.2f} ms of {wall:.2f} ms wall "
             f"({100 * busy / wall:.1f}%), {len(kernels)} kernel names "
             f"[{card}]")
-        for name, ms in top:
+        for name, ms in top_kernels(kernels, 6):
             log(f"      {ms:8.3f} ms  {name[:100]}")
     core.handle({"op": "end", "sid": sid[0]})
     return launches
@@ -518,9 +574,16 @@ def phase_train(card, ops):
         log(f"  train step: device busy {busy:.2f} ms of {step_ms:.2f} ms "
             f"wall ({100 * busy / step_ms:.1f}%), {len(kernels_ms)} kernel "
             f"names [{card}]")
-        for name, ms in sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:12]:
+        for name, ms in top_kernels(kernels_ms, 12):
             log(f"      {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
     return launches
+
+
+def top_kernels(by_name, n):
+    """The ``n`` kernels with the most device time, then the port's own
+    (flash_*) kernels that are not among them."""
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return ranked[:n] + [kv for kv in ranked[n:] if "flash_" in kv[0]]
 
 
 def device_kernel_ms(fn):
@@ -545,6 +608,28 @@ def device_kernel_ms(fn):
     return by_name
 
 
+def check_ptxas(nvcc_log):
+    """Fail on what ptxas says would cost the Hopper forward its overlap:
+    a wgmma serialised, or a spill in a flash_fwd_hopper_kernel instance;
+    print each instance's registers."""
+    if "wgmma.mma_async instructions are serialized" in nvcc_log:
+        raise AssertionError("ptxas serialised wgmma instructions")
+    function = None
+    for line in nvcc_log.splitlines():
+        if "Function properties for" in line:
+            function = line.split()[-1]
+        elif function and "flash_fwd_hopper_kernel" in function:
+            if "spill stores" in line and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores"):
+                raise AssertionError(f"ptxas spilled in {function}: {line}")
+            if "Used" in line and "registers" in line:
+                args = re.search(r"hopper_kernelILi(\d+)ELb(\d)E", function)
+                name = (f"flash_fwd_hopper_kernel<{args[1]}, "
+                        f"{'true' if args[2] == '1' else 'false'}>"
+                        if args else function)
+                log(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -565,9 +650,10 @@ def main():
     for built in build.build_all():
         log(f"  {built.name}: {built.path.name} in {built.seconds:.2f} s")
         log(built.log.rstrip())
+        check_ptxas(built.log)
     log(f"  build phase {time.perf_counter() - t0:.2f} s")
 
-    rows = [phase_kernels(card, ops.flash_fwd, ops.flash_attention_plain),
+    rows = [phase_kernels(card, ops),
             *phase_bwd_kernels(card, ops)]
     by_path = {"serve": {"flash_fwd": phase_slice(card, ops.flash_fwd)}}
     torch.cuda.empty_cache()

@@ -1,8 +1,10 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// tile loads into shared memory and the warp-level products.  For bf16 the
-// products run on the tensor cores through WMMA `mma.sync` 16x16x16 tiles
-// with fp32 accumulation; fp32 inputs take scalar fp32 FMAs, which keeps the
-// fp32 case exact rather than rounding it through TF32.
+// Pieces shared by the flash-attention kernels of the first design (the
+// backward in flash_bwd.cu and the fp32 route of flash_fwd.cu; the bf16
+// forward is built from hopper.cuh): tile loads into shared memory and the
+// warp-level products.  For bf16 the products run on the tensor cores
+// through WMMA `mma.sync` 16x16x16 tiles with fp32 accumulation; fp32
+// inputs take scalar fp32 FMAs, which keeps the fp32 case exact rather than
+// rounding it through TF32.
 //
 // A CTA has four warps; a warp's products cover 16 rows of its operand A
 // against a 64-row tile B shared by the whole CTA.  Shared-memory strides

@@ -18,5 +18,6 @@ from .flash_attention import (  # noqa: F401
     flash_bwd_dq,
     flash_bwd_dq_plain,
     flash_fwd,
+    planted_fwd_faults,
     tile_rel_err,
 )

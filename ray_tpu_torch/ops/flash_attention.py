@@ -209,6 +209,34 @@ def tile_rel_err(got: torch.Tensor, want: torch.Tensor, rows: int = 64
     return float(ratio.max().sqrt())
 
 
+def planted_fwd_faults(fwd, q, k, v, o, causal: bool,
+                       sm_scale: float) -> dict:
+    """{what: O} of three wrong forward kernels that a check of O must
+    refuse: the last 64-row q tile zeroed; each group's V taken from another
+    KV head (none when there is one KV head); the middle 64-key tile of V
+    dropped for the q tiles after it (none when no q tile comes after it).
+    ``fwd`` is `flash_fwd` or `flash_attention_plain`, ``o`` its good O."""
+    rows = 64   # the tiles of `tile_rel_err`
+    s_q, s_kv = q.shape[1], k.shape[1]
+    faults = {}
+    bad = o.clone()
+    bad[:, (s_q - 1) // rows * rows:] = 0
+    faults["last q tile zeroed"] = bad
+    if k.shape[2] > 1:
+        faults["V from another KV head"] = fwd(
+            q, k, v.roll(1, dims=2).contiguous(), causal, sm_scale)[0]
+    tile = s_kv // rows // 2
+    v_cut = v.clone()
+    v_cut[:, tile * rows:(tile + 1) * rows] = 0
+    # the first q tile whose rows all come after the dropped keys
+    first = max(0, -(-((tile + 1) * rows - (s_kv - s_q)) // rows) * rows)
+    if first < s_q:
+        bad = o.clone()
+        bad[:, first:] = fwd(q, k, v_cut, causal, sm_scale)[0][:, first:]
+        faults["a key tile dropped"] = bad
+    return faults
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool,
                  sm_scale: float) -> torch.Tensor:
     """→ dQ of `flash_bwd_dq_plain`, by the CUDA kernel for CUDA tensors;

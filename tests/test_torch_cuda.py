@@ -17,6 +17,7 @@ from ray_tpu_torch.ops.flash_attention import (flash_attention_bwd_plain,
                                                flash_attention_plain,
                                                flash_bwd, flash_bwd_dkv,
                                                flash_bwd_dq, flash_fwd,
+                                               planted_fwd_faults,
                                                tile_rel_err)
 
 pytestmark = pytest.mark.gpu
@@ -25,6 +26,11 @@ DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 # (O atol = rtol, LSE atol): bf16 rounds P and O at other block boundaries
 # than the plain version, fp32 differs only in summation order
 TOL = {"bf16": (2e-2, 1e-3), "fp32": (1e-4, 1e-4)}
+# O's tile error (tile_rel_err, every 64-row tile of each batch and head,
+# whatever its scale): the elementwise bound above is as large as many
+# values of O; the plain version in bf16 against fp32 scores about 2.4e-3,
+# a dropped tile, head or key range 0.25 to 1.5.
+FWD_TILE_TOL = {"bf16": 1e-2, "fp32": 1e-4}
 # dQ, dK, dV atol = rtol.  bf16: S and dP come out of the tensor cores in
 # another summation order than the plain fp32 products, so P and dS round
 # to bf16 differently in a few places, and the outputs are rounded to bf16;
@@ -44,6 +50,17 @@ CASES = [
     (1, 300, 300, 4, 2, 64, "fp32", True),       # fp32
     (1, 300, 500, 4, 2, 128, "fp32", False),     # fp32, d 128, non-causal
 ]
+# the forward kernel's edges: a CTA owns 128 q rows, 64 per consumer
+# warpgroup, and walks 128-key tiles
+FWD_EDGE_CASES = [
+    (4, 1024, 1024, 32, 8, 64, "bf16", True),    # llama-1b training shape
+    (1, 17, 17, 4, 2, 64, "bf16", True),         # one consumer idle
+    (1, 64, 64, 4, 2, 64, "bf16", True),         # the second one empty
+    (1, 65, 65, 4, 2, 64, "bf16", True),         # ... and with one row
+    (1, 129, 129, 4, 2, 64, "bf16", True),       # one key in the last tile
+    (1, 300, 100, 4, 2, 64, "bf16", True),       # dead rows over 2 CTAs
+    (1, 384, 300, 4, 2, 128, "bf16", False),     # d 128, non-causal
+]
 
 
 @pytest.fixture
@@ -61,7 +78,8 @@ def _qkv(seed, b, s_q, s_kv, h, h_kv, d, dtype, device):
                           (b, s_kv, h_kv, d))]
 
 
-@pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,d,dtype,causal", CASES)
+@pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,d,dtype,causal",
+                         CASES + FWD_EDGE_CASES)
 def test_flash_fwd_matches_plain(cuda, b, s_q, s_kv, h, h_kv, d, dtype,
                                  causal):
     q, k, v = _qkv(0, b, s_q, s_kv, h, h_kv, d, dtype, cuda)
@@ -75,9 +93,39 @@ def test_flash_fwd_matches_plain(cuda, b, s_q, s_kv, h, h_kv, d, dtype,
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol_o,
                                rtol=tol_o)
     torch.testing.assert_close(lse, lse_ref, atol=tol_lse, rtol=0)
+    assert tile_rel_err(o, o_ref) <= FWD_TILE_TOL[dtype]
     if causal and s_q > s_kv:
         dead = s_q - s_kv
         assert torch.all(o[:, :dead] == 0) and torch.all(lse[:, :, :dead] == 0)
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,d,dtype,causal",
+                         [c for c in CASES if c[6] == "bf16"])
+def test_flash_fwd_tile_error_refuses_planted_faults(cuda, b, s_q, s_kv, h,
+                                                     h_kv, d, dtype, causal):
+    """O with its last q tile zeroed, with V from another KV head, and with
+    a key tile dropped for the q tiles after it fails the tile bound."""
+    q, k, v = _qkv(0, b, s_q, s_kv, h, h_kv, d, dtype, cuda)
+    scale = d ** -0.5
+    o, _ = flash_fwd(q, k, v, causal, scale)
+    faults = planted_fwd_faults(flash_fwd, q, k, v, o, causal, scale)
+    assert len(faults) == 3
+    for what, bad in faults.items():
+        assert tile_rel_err(bad, o) > 10 * FWD_TILE_TOL[dtype], what
+
+
+@pytest.mark.parametrize("sm_scale", [-0.125, 0.0, 1e-3])
+def test_flash_fwd_matches_plain_at_any_softmax_scale(cuda, sm_scale):
+    """A scale >= 0 is folded into the exponent, a negative one (which
+    reverses the order of the scores) is applied first; 0 is uniform."""
+    q, k, v = _qkv(6, 1, 300, 300, 4, 2, 64, "bf16", cuda)
+    o, lse = flash_fwd(q, k, v, True, sm_scale)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, True, sm_scale)
+    tol_o, tol_lse = TOL["bf16"]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol_o,
+                               rtol=tol_o)
+    torch.testing.assert_close(lse, lse_ref, atol=tol_lse, rtol=0)
+    assert tile_rel_err(o, o_ref) <= FWD_TILE_TOL["bf16"]
 
 
 def test_flash_fwd_rejects_what_the_kernel_does_not_take(cuda):

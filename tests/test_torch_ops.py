@@ -110,6 +110,33 @@ def test_flash_wrapper_on_cpu_runs_plain_version_and_checks_inputs():
                        True, 1.0)
 
 
+@pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,causal", [
+    (1, 256, 256, 4, 2, True),     # GQA, causal, s_q = s_kv
+    (1, 320, 192, 4, 2, True),     # s_q > s_kv: dead rows, ragged tiles
+    (2, 192, 320, 4, 2, False),    # non-causal
+])
+def test_tile_rel_err_refuses_planted_forward_faults(b, s_q, s_kv, h, h_kv,
+                                                     causal):
+    """The tile error that holds the forward kernel's O on the card: the
+    plain version in bf16 against fp32 on the same inputs (every bf16
+    rounding at once) stays under the bf16 bound (1e-2); each planted fault
+    (the last q tile zeroed, V from another KV head, the middle key tile
+    dropped for the q tiles after it) scores far above it."""
+    rng = np.random.default_rng(7)
+    d, scale = 64, 64 ** -0.5
+    q, k, v = (_pair(rng, shape, "bf16")[1] for shape in (
+        (b, s_q, h, d), (b, s_kv, h_kv, d), (b, s_kv, h_kv, d)))
+    o, _ = tops.flash_attention_plain(q, k, v, causal, scale)
+    o32, _ = tops.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal, scale)
+    assert 1e-3 < tops.tile_rel_err(o, o32) < 1e-2
+    faults = tops.planted_fwd_faults(tops.flash_attention_plain, q, k, v, o,
+                                     causal, scale)
+    assert len(faults) == 3
+    for what, bad in faults.items():
+        assert tops.tile_rel_err(bad, o) > 0.1, what
+
+
 # dQ, dK, dV atol = rtol.  fp32: summation order only (measured up to 2e-6
 # at |grad| <= 5).  bf16: both round P and dS to bf16 and the results to
 # bf16; S and dP come out of products summed in another order, so a value
