@@ -7,15 +7,17 @@ Phases, each fatal on failure:
   1. card    — name and power limit (nvidia-smi);
   2. build   — every CUDA source of the port with nvcc for sm_90a, all at
                once, timed, with nvcc's register / shared-memory report; a
-               wgmma that ptxas serialises, or a spill in the Hopper forward
-               kernel, fails it;
+               wgmma that ptxas serialises, or a spill in any instance of a
+               Hopper kernel (the forward, dQ and dK/dV), fails it;
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main paths' shapes and the edge cases, with the stated
                tolerances (elementwise and per 64-row tile), and planted
                faults in the kernels' results that the check must refuse;
-               kernel, plain and library times from CUDA events beside the
-               bound the card could reach, at the main shape (the forward
-               at both main paths' shapes, with its host time per call);
+               the backward bitwise the same over two calls; kernel, plain
+               and library times from CUDA events beside the bound the card
+               could reach, at the main shape (the forward at both main
+               paths' shapes, with its host time per call; the backward
+               also as a whole, delta and both kernels, beside SDPA's);
   4. slice   — llama-1b (bf16 weights from a seed) served by the port's
                DecodeSessionCore: three requests (prompts of 2048, 1000 and
                17 tokens, each start + 16 next + end), then one generate with
@@ -248,6 +250,7 @@ def phase_kernels(card, ops):
     serve = by_shape["serve"]
     return {"name": "flash_fwd", "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_fwd.cu",
+            "kernel": "flash_fwd_hopper_kernel",
             "replaces": "ray_tpu/ops/flash_attention.py:94",
             "max_abs_err": main_err, "ms": serve["ms"],
             "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
@@ -269,7 +272,7 @@ def bwd_matches(got, want, dtype):
 
 def delta_of(o, do):
     """δ as flash_bwd computes it before the two kernels."""
-    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return (do * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def planted_faults(ops, q, k, v, o, lse, do, causal, scale, got):
@@ -344,6 +347,14 @@ def phase_bwd_kernels(card, ops):
     do = randn(6, (b, s_q, h, d), dtype)
     scale = d ** -0.5
     o, lse = ops.flash_fwd(q, k, v, causal, scale)
+    # no atomics: each output tile is written once, so two calls agree
+    first = ops.flash_bwd(q, k, v, o, lse, do, causal, scale)
+    second = ops.flash_bwd(q, k, v, o, lse, do, causal, scale)
+    same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
+    log(f"  {name}: dQ, dK, dV bitwise the same over two calls: {same}")
+    if not all(same):
+        raise AssertionError("flash_bwd is not deterministic")
+    del first, second
     args = (q, k, v, do, lse, delta_of(o, do), causal, scale)
     # yardstick only, never called by the port: the backward of
     # scaled_dot_product_attention (dQ, dK and dV in one call)
@@ -354,6 +365,13 @@ def phase_bwd_kernels(card, ops):
     dot = do.transpose(1, 2).contiguous()
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    whole_ms = cuda_ms(
+        lambda: ops.flash_bwd(q, k, v, o, lse, do, causal, scale), iters=20)
+    delta_ms = cuda_ms(lambda: delta_of(o, do), iters=20)
+    log(f"  flash_bwd as a whole (delta + dQ + dK/dV) {whole_ms:.4f} ms, "
+        f"delta alone {delta_ms:.4f} ms; scaled_dot_product_attention "
+        f"backward {library_ms:.4f} ms ({whole_ms / library_ms:.2f}x) "
+        f"[{card}]")
     rows = []
     for kernel, plain, counts in (
             (ops.flash_bwd_dq, ops.flash_bwd_dq_plain,
@@ -372,12 +390,14 @@ def phase_bwd_kernels(card, ops):
             f"bound [{card}]")
         rows.append({"name": kname, "route": "cuda",
                      "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                     "kernel": f"{kname}_hopper_kernel",
                      "replaces": ("ray_tpu/ops/flash_attention.py:202"
                                   if kname == "flash_bwd_dq" else
                                   "ray_tpu/ops/flash_attention.py:241"),
                      "max_abs_err": main_err[kname], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "bwd_whole_ms": whole_ms})
     return rows
 
 
@@ -608,25 +628,32 @@ def device_kernel_ms(fn):
     return by_name
 
 
+def hopper_instance(function):
+    """'flash_bwd_dkv_hopper_kernel<64, 128>' from a mangled name; None for
+    any other kernel."""
+    found = re.search(r"(flash_[a-z_]+_hopper_kernel)I(.*?)EEv", function)
+    if not found:
+        return None
+    args = [("true" if value == "1" else "false") if kind == "b" else value
+            for kind, value in re.findall(r"L([ib])(\d+)E", found[2])]
+    return f"{found[1]}<{', '.join(args)}>"
+
+
 def check_ptxas(nvcc_log):
-    """Fail on what ptxas says would cost the Hopper forward its overlap:
-    a wgmma serialised, or a spill in a flash_fwd_hopper_kernel instance;
-    print each instance's registers."""
+    """Fail on what ptxas says would cost a Hopper kernel its overlap: a
+    wgmma serialised, or a spill in any instance of a *_hopper_kernel
+    (forward, dQ, dK/dV); print each instance's registers."""
     if "wgmma.mma_async instructions are serialized" in nvcc_log:
         raise AssertionError("ptxas serialised wgmma instructions")
-    function = None
+    name = None
     for line in nvcc_log.splitlines():
         if "Function properties for" in line:
-            function = line.split()[-1]
-        elif function and "flash_fwd_hopper_kernel" in function:
+            name = hopper_instance(line.split()[-1])
+        elif name:
             if "spill stores" in line and not line.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores"):
-                raise AssertionError(f"ptxas spilled in {function}: {line}")
+                raise AssertionError(f"ptxas spilled in {name}: {line}")
             if "Used" in line and "registers" in line:
-                args = re.search(r"hopper_kernelILi(\d+)ELb(\d)E", function)
-                name = (f"flash_fwd_hopper_kernel<{args[1]}, "
-                        f"{'true' if args[2] == '1' else 'false'}>"
-                        if args else function)
                 log(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}")
 
 

@@ -1,42 +1,29 @@
-// Pieces shared by the flash-attention kernels of the first design (the
-// backward in flash_bwd.cu and the fp32 route of flash_fwd.cu; the bf16
-// forward is built from hopper.cuh): tile loads into shared memory and the
-// warp-level products.  For bf16 the products run on the tensor cores
-// through WMMA `mma.sync` 16x16x16 tiles with fp32 accumulation; fp32
-// inputs take scalar fp32 FMAs, which keeps the fp32 case exact rather than
-// rounding it through TF32.
+// Pieces shared by the flash-attention kernels' fp32 route (flash_fwd.cu,
+// flash_bwd.cu; the bf16 kernels are built from hopper.cuh and
+// flash_hopper.cuh): tile loads into shared memory and the warp-level
+// products, in scalar fp32 FMAs, which keep the fp32 case exact rather
+// than rounding it through TF32.
 //
 // A CTA has four warps; a warp's products cover 16 rows of its operand A
 // against a 64-row tile B shared by the whole CTA.  Shared-memory strides
-// (`ld*`) are in elements; every warp slice and every region passed here
-// starts on a 32-byte boundary, as WMMA loads and stores require.
+// (`ld*`) are in elements.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 namespace flash {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int BLOCK_M = 64;  // rows of the CTA's own tile, 16 per warp
 constexpr int BLOCK_N = 64;  // rows of the tile the CTA walks over
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr float NEG_INF = -1e30f;  // as the TPU kernels: avoids inf - inf
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
 
 // Copy rows [row0, row0 + ROWS) of one head of a [b, s, heads, D] tensor
 // into shared memory, 16 bytes a thread; rows at or past `rows_valid` are
@@ -57,27 +44,7 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
   }
 }
 
-// One warp: out[16, BLOCK_N] = a[16, D] . b[BLOCK_N, D]^T, in fp32.
-template <int D>
-__device__ __forceinline__ void warp_nt(const bf16* a, int lda, const bf16* b,
-                                        int ldb, float* out, int ldo,
-                                        int lane) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[D / 16];
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(fa[kk], a + kk * 16, lda);
-  for (int n = 0; n < BLOCK_N; n += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < D / 16; ++kk) {
-      // b^T as a column-major operand: element (d, row) at b[row*ldb + d]
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + n * ldb + kk * 16, ldb);
-      wmma::mma_sync(acc, fa[kk], fb, acc);
-    }
-    wmma::store_matrix_sync(out + n, acc, ldo, wmma::mem_row_major);
-  }
-}
-
+// One warp: out[16, BLOCK_N] = a[16, D] . b[BLOCK_N, D]^T.
 template <int D>
 __device__ __forceinline__ void warp_nt(const float* a, int lda,
                                         const float* b, int ldb, float* out,
@@ -92,27 +59,7 @@ __device__ __forceinline__ void warp_nt(const float* a, int lda,
   }
 }
 
-// One warp: out[16, D] = a[16, BLOCK_N] . b[BLOCK_N, D], in fp32.
-template <int D>
-__device__ __forceinline__ void warp_nn(const bf16* a, int lda, const bf16* b,
-                                        int ldb, float* out, int ldo,
-                                        int lane) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-      fa[BLOCK_N / 16];
-  for (int kk = 0; kk < BLOCK_N / 16; ++kk)
-    wmma::load_matrix_sync(fa[kk], a + kk * 16, lda);
-  for (int n = 0; n < D; n += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * ldb + n, ldb);
-      wmma::mma_sync(acc, fa[kk], fb, acc);
-    }
-    wmma::store_matrix_sync(out + n, acc, ldo, wmma::mem_row_major);
-  }
-}
-
+// One warp: out[16, D] = a[16, BLOCK_N] . b[BLOCK_N, D].
 template <int D>
 __device__ __forceinline__ void warp_nn(const float* a, int lda,
                                         const float* b, int ldb, float* out,

@@ -55,50 +55,17 @@
 // CTA per (batch, head, 64-row q tile), four warps of 16 rows, K and V tiles
 // of 64 keys loaded synchronously, scores and P V through shared memory.
 
-#include "flash_common.cuh"
-#include "hopper.cuh"
-
-#include <cstdio>
+#include "flash_hopper.cuh"
 
 namespace {
 
 using namespace flash;
 using namespace hopper;
 
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // -- bf16: the Hopper kernel -------------------------------------------------
 
-constexpr int HM = 128;        // q rows of a CTA, 64 per consumer warpgroup
-constexpr int HN = 128;        // keys of a K/V tile
 constexpr int STAGES = 2;      // K/V tiles in flight
 constexpr int Q_STAGES = 2;    // Q tiles: this item's and the next one's
-constexpr int WG_THREADS = 128;
-constexpr int HOPPER_THREADS = 3 * WG_THREADS;
-constexpr int BOX_BYTES = 128;  // one row of a 64-column box
-constexpr int CONSUMER_WARPS = 8;
 
 // Shared memory: each tile is D / 64 boxes of rows x 128 bytes (see
 // hopper.cuh), every box on a 1024-byte boundary; the mbarriers last.
@@ -165,42 +132,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[HN / 2],
   for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
 }
 
-// The work of a launch: one item per (batch, head, 128-row q tile),
-// numbered with the heads and batches fastest and, under causality, the
-// longest walks (the last q tiles) first.
-struct Work {
-  int bh, n_qt, h, h_kv, s_q, s_kv, causal;
-  __host__ __device__ int total() const { return bh * n_qt; }
-};
-
-struct Item {
-  int bb, hh, kvh, q0, n_tiles;
-};
-
-__device__ __forceinline__ Item item_of(const Work& w, int index) {
-  const int rank = index / w.bh, bh = index % w.bh;
-  Item it;
-  it.bb = bh / w.h;
-  it.hh = bh % w.h;
-  it.kvh = it.hh / (w.h / w.h_kv);
-  it.q0 = (w.causal ? w.n_qt - 1 - rank : rank) * HM;
-  it.n_tiles = (w.s_kv + HN - 1) / HN;
-  if (w.causal) {  // skip k-tiles wholly above the diagonal of this q tile
-    const int last_key = min(it.q0 + HM, w.s_q) - 1 + (w.s_kv - w.s_q);
-    it.n_tiles = last_key < 0 ? 0 : min(it.n_tiles, last_key / HN + 1);
-  }
-  return it;
-}
-
-// The CTA's r-th item: round r of the grid, in reverse every other round,
-// so that each CTA's sum of walks comes out near the mean (the items run
-// from the longest walk down).  → -1 past the last item.
-__device__ __forceinline__ int item_index(const Work& w, int r) {
-  const int g = gridDim.x, c = blockIdx.x;
-  const int index = r * g + ((r & 1) ? g - 1 - c : c);
-  return index < w.total() ? index : -1;
-}
-
 // Persistent: a grid of at most one CTA per SM walks the items.  O is
 // [b, s_q, h, D]; LSE is [b, h, s_q].  Warpgroup 0 is the producer, 1 and 2
 // the consumers of rows 0-63 and 64-127 of each item's q tile.
@@ -249,7 +180,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
       RingPos<STAGES> pos;
       RingPos<Q_STAGES> qpos;
       for (int r = 0;; ++r) {
-        const int index = item_index(work, r);
+        const int index = item_index(work.total(), r);
         if (index < 0) break;
         const Item it = item_of(work, index);
         unsigned char* q_s = smem + L::q_off + qpos.stage * L::Q_BYTES;
@@ -292,9 +223,8 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
   // waiting on its own named barrier (1 + cw) for the other's arrival, so
   // that one's softmax runs while the other's products use the tensor
   // cores.  Consumer 0 takes the first turn.
-  auto turn_wait = [&]() { named_bar_sync(1 + cw, 2 * WG_THREADS); };
-  auto turn_pass = [&]() { named_bar_arrive(2 - cw, 2 * WG_THREADS); };
-  if (cw == 0) named_bar_arrive(1, 2 * WG_THREADS);
+  const Turns turn{cw};
+  turn.begin();
   const int tid = threadIdx.x % WG_THREADS;
   const int warp = tid / 32, lane = tid % 32;
   const int row_in = cw * 64 + warp * 16 + lane / 4;  // and row_in + 8
@@ -345,26 +275,15 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(acc);
     fence_regs(p);
   };
-  auto release = [&](uint64_t* bar) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bar);  // this warp is done with it
-  };
   auto rescale = [&]() {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
   };
-  // P rounded to bf16 into the A registers of P V: accumulator registers
-  // 8k .. 8k + 7 are the A fragment of k16 step k (hopper.cuh)
-  auto pack_p = [&](const float (&s)[HN / 2]) {
-#pragma unroll
-    for (int kk = 0; kk < HN / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
-  };
+  // P rounded to bf16 into the A registers of P V
+  auto pack_p = [&](const float (&s)[HN / 2]) { pack_a<HN>(p, s); };
 
   for (int r = 0;; ++r) {
-    const int index = item_index(work, r);
+    const int index = item_index(work.total(), r);
     if (index < 0) break;
     const Item it = item_of(work, index);
     const int row0 = it.q0 + row_in;
@@ -388,12 +307,12 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (OVERLAP && it.n_tiles > 0) {
       float s[HN / 2];
       mbar_wait(&k_full[kpos.stage], kpos.phase);
-      turn_wait();
+      turn.wait();
       issue_qk(s);
-      turn_pass();
+      turn.pass();
       wgmma_wait<0>();
       fence_regs(s);
-      release(&k_empty[kpos.stage]);
+      release(&k_empty[kpos.stage], lane);
       kpos.advance();
       softmax(0, s);  // O is still 0: no rescale
       pack_p(s);
@@ -401,25 +320,25 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int t = OVERLAP ? 1 : 0; t < it.n_tiles; ++t) {
       float s[HN / 2];
       mbar_wait(&k_full[kpos.stage], kpos.phase);
-      turn_wait();
+      turn.wait();
       issue_qk(s);
       if (OVERLAP) {
         rescale();  // while S_t runs
         mbar_wait(&v_full[vpos.stage], vpos.phase);
         issue_pv();
-        turn_pass();
+        turn.pass();
         wgmma_wait<1>();  // S_t is done, P_{t-1} V_{t-1} may still run
       } else {
-        turn_pass();
+        turn.pass();
         wgmma_wait<0>();
       }
       fence_regs(s);
-      release(&k_empty[kpos.stage]);
+      release(&k_empty[kpos.stage], lane);
       kpos.advance();
       softmax(t, s);
       if (OVERLAP) {
         wait_pv();
-        release(&v_empty[vpos.stage]);
+        release(&v_empty[vpos.stage], lane);
         vpos.advance();
       } else {
         rescale();
@@ -429,18 +348,18 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(&v_full[vpos.stage], vpos.phase);
         issue_pv();
         wait_pv();
-        release(&v_empty[vpos.stage]);
+        release(&v_empty[vpos.stage], lane);
         vpos.advance();
       }
     }
-    release(&q_empty[qpos.stage]);  // every Q K^T of the item is done
+    release(&q_empty[qpos.stage], lane);  // every Q K^T of the item is done
     qpos.advance();
     if (OVERLAP && it.n_tiles > 0) {
       rescale();
       mbar_wait(&v_full[vpos.stage], vpos.phase);
       issue_pv();
       wait_pv();
-      release(&v_empty[vpos.stage]);
+      release(&v_empty[vpos.stage], lane);
       vpos.advance();
     }
 
@@ -464,16 +383,6 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
                                     : m[rr] * LN2 + logf(fmaxf(lr, 1e-30f));
     }
   }
-}
-
-// SMs of each device, read once
-inline int sm_count(int device) {
-  static int counts[64] = {};
-  if (device < 0 || device >= 64) return 0;
-  if (counts[device] == 0)
-    cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount,
-                           device);
-  return counts[device];
 }
 
 template <int D>
@@ -668,16 +577,7 @@ int ray_tpu_flash_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 const char* ray_tpu_cuda_error_string(int code) {
-  if (code == hopper::TMAP_ERROR)
-    return "cuTensorMapEncodeTiled not found in the driver";
-  if (code > hopper::TMAP_ERROR) {
-    static thread_local char msg[80];
-    std::snprintf(msg, sizeof msg,
-                  "cuTensorMapEncodeTiled refused the map (CUresult %d)",
-                  code - hopper::TMAP_ERROR);
-    return msg;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return flash::error_string(code);
 }
 
 }  // extern "C"

@@ -14,6 +14,9 @@
 //  - MN-major (the contiguous bytes run along M or N, as V's columns do in
 //    P V): 8 rows along K form one 1024-byte atom (SBO = 1024 to the next),
 //    and the next 64 columns of M or N are one box further (LBO).
+// The same box serves both ways: the backward reads each Q and dO tile
+// K-major in one product (S^T = K Q^T) and MN-major in another
+// (dK += dS^T Q).
 //
 // The host helper fetches cuTensorMapEncodeTiled from the driver through
 // the runtime (cudaGetDriverEntryPoint), so a library built from these
@@ -270,6 +273,43 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both in shared memory, as above.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The SS product of width N (64 or 128) into its N / 2 accumulators.
+template <int TRANS_B, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_ss<TRANS_B>(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n128k16_ss<TRANS_B>(d, desc_a, desc_b, scale_d);
+}
+
 // D[64 x N] (+)= A[64 x 16] . B[16 x N], A from registers.
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
@@ -333,6 +373,18 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
         "n"(TRANS_B));
+}
+
+// The RS product of width N (64 or 128) into its N / 2 accumulators.
+template <int TRANS_B, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_rs<TRANS_B>(d, a, desc_b, scale_d);
+  else
+    wgmma_m64n128k16_rs<TRANS_B>(d, a, desc_b, scale_d);
 }
 
 // -- device: named barriers --------------------------------------------------

@@ -61,6 +61,20 @@ FWD_EDGE_CASES = [
     (1, 300, 100, 4, 2, 64, "bf16", True),       # dead rows over 2 CTAs
     (1, 384, 300, 4, 2, 128, "bf16", False),     # d 128, non-causal
 ]
+# the backward kernels' edges: a dK/dV item is 128 keys (64 per consumer
+# warpgroup) walking q tiles of 128 rows (64 at d 128); a dQ item is 128
+# rows walking 128-key tiles; both grids hold at most one CTA per SM
+BWD_EDGE_CASES = [
+    (1, 128, 128, 4, 2, 64, "bf16", True),       # fewer items than SMs
+    (1, 17, 17, 4, 2, 64, "bf16", True),         # one ragged tile
+    (1, 129, 129, 4, 2, 64, "bf16", True),       # one key, one row past 128
+    (1, 1000, 1000, 32, 8, 64, "bf16", True),    # ragged 1000 tokens, GQA
+    (1, 2048, 1000, 32, 8, 64, "bf16", True),    # s_q > s_kv: dead rows
+    (1, 300, 100, 4, 2, 128, "bf16", True),      # ... at d 128
+    (2, 1024, 1024, 16, 16, 64, "bf16", True),   # MHA
+    (1, 2048, 2048, 24, 8, 128, "bf16", True),   # d 128
+    (1, 384, 300, 4, 2, 128, "bf16", False),     # d 128, non-causal
+]
 
 
 @pytest.fixture
@@ -141,8 +155,8 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,d,dtype,causal", [
-    (4, 1024, 1024, 32, 8, 64, "bf16", True),    # llama-1b training shape
-    *CASES[1:]])
+    (4, 1024, 1024, 32, 8, 64, "bf16", True),    # llama-1b training shape:
+    *CASES[1:], *BWD_EDGE_CASES])                # more items than the grid
 def test_flash_bwd_matches_plain(cuda, b, s_q, s_kv, h, h_kv, d, dtype,
                                  causal):
     q, k, v = _qkv(2, b, s_q, s_kv, h, h_kv, d, dtype, cuda)
@@ -165,6 +179,38 @@ def test_flash_bwd_matches_plain(cuda, b, s_q, s_kv, h, h_kv, d, dtype,
         assert tile_rel_err(got, ref) <= BWD_TILE_TOL[dtype], name
     if causal and s_q > s_kv:   # rows that see no key get no gradient
         assert torch.all(grads[0][:, :s_q - s_kv] == 0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sm_scale", [-0.125, 0.0, 1e-3])
+def test_flash_bwd_matches_plain_at_any_softmax_scale(cuda, sm_scale, d):
+    """P = exp2(S * sm_scale * log2 e - LSE * log2 e) is one FFMA whatever
+    the scale's sign (the backward has no running max to take); a scale of
+    0 gives uniform rows and dS = 0."""
+    q, k, v = _qkv(6, 1, 300, 300, 4, 2, d, "bf16", cuda)
+    do = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        q.shape, dtype=np.float32)).to(device=cuda, dtype=torch.bfloat16)
+    o, lse = flash_fwd(q, k, v, True, sm_scale)
+    grads = flash_bwd(q, k, v, o, lse, do, True, sm_scale)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, True, sm_scale)
+    tol = BWD_TOL["bf16"]
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol, msg=name)
+        assert tile_rel_err(got, ref) <= BWD_TILE_TOL["bf16"], name
+
+
+def test_flash_bwd_is_bitwise_deterministic(cuda):
+    """No atomics: every dQ, dK and dV tile is written once by the CTA
+    that owns it, so two calls at the training shape give the same bits."""
+    q, k, v = _qkv(8, 4, 1024, 1024, 32, 8, 64, "bf16", cuda)
+    do = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        q.shape, dtype=np.float32)).to(device=cuda, dtype=torch.bfloat16)
+    o, lse = flash_fwd(q, k, v, True, 0.125)
+    first = flash_bwd(q, k, v, o, lse, do, True, 0.125)
+    second = flash_bwd(q, k, v, o, lse, do, True, 0.125)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_bwd_tile_error_refuses_planted_faults(cuda):
