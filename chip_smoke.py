@@ -19,14 +19,29 @@ Phases, each fatal on failure:
                paths' shapes, with its host time per call; the backward
                also as a whole, delta and both kernels, beside SDPA's);
   4. slice   — llama-1b (bf16 weights from a seed) served by the port's
-               DecodeSessionCore: three requests (prompts of 2048, 1000 and
-               17 tokens, each start + 16 next + end), then one generate with
-               B = 2.  The kernels' launch counters are set to 0 just before
+               DecodeSessionCore(engine=False): three requests (prompts of
+               2048, 1000 and 17 tokens, each start + 16 next + end), then
+               one generate with B = 2.  The kernels' launch counters are set to 0 just before
                and read just after; the 2048-token prefill's logits are
                checked against the same model with reference attention,
                and one start and one next are profiled for device time by
                kernel (torch.profiler);
-  5. train   — llama-1b at bench.py's training settings (remat "dots",
+  5. engine  — llama-1b at full width and depth served by the continuous-
+               batching engine (DecodeEngineConfig(max_slots=8,
+               prefill_chunk_tokens=32), max_len 2048), its decode step a
+               CUDA graph: one graph replay against one eager step from the
+               same state (tokens and pos equal, logits within 1e-2
+               relative); fp32 streams (prompts of 17, 300 and 1000 tokens,
+               32 tokens each) through the engine, through an engine=False
+               core and with a shared draft speculating, identical but for a
+               printed near-tie; 12 bf16 sessions from client threads over 8
+               slots, 4 sharing a 512-token prefix (no error, tokens in
+               range, 3 prefix hits, the reckoned prefill chunks, 0 flash
+               launches, graph replays = steps); one resume of a stream
+               continuing it; step times eager and graph, tokens/s, TTFT
+               idle and under load, chunk and speculative times, device busy
+               shares, peak memory, the dispatch profile;
+  6. train   — llama-1b at bench.py's training settings (remat "dots",
                norm_remat, loss_chunk 128, bf16 weights from a seed) through
                make_train_step and torch.optim.AdamW: 8 steps on one batch of
                4 x 1024 tokens with the launch counters set to 0 just before
@@ -34,16 +49,19 @@ Phases, each fatal on failure:
                must be finite and fall; one step with accum_steps=2; one
                step's loss and gradients against reference attention; step
                time, tokens/s, MFU, peak memory and one profiled step.
-Then one JSON line of the kernels, and last the device line.  Exits non-zero
+Then one JSON line of the engine's numbers, one of the kernels, and last the
+device line.  Exits non-zero
 without a result when no CUDA device is present.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -98,6 +116,22 @@ BWD_CASES = [
     ("MHA", 2, 1024, 1024, 16, 16, 64, torch.bfloat16, True),
 ]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+# the engine phase: llama-1b, DecodeEngineConfig(max_slots=8,
+# prefill_chunk_tokens=32), max_len 2048
+ENGINE_MAX_LEN, ENGINE_SLOTS, ENGINE_CHUNK = 2048, 8, 32
+STREAM_PROMPTS, STREAM_TOKENS = (17, 300, 1000), 32   # fp32 stream checks
+# the load run: 4 prompts of a shared 512-token prefix and a suffix of
+# these lengths, 8 other prompts, 64 tokens drained from each
+SHARED_PREFIX, SHARED_SUFFIXES = 512, (40, 100, 9, 300)
+LOAD_PROMPTS, LOAD_TOKENS = (17, 1000, 250, 64, 777, 33, 500, 128), 64
+# two streams may part only where the reference's top two logits are
+# within this share of the top one: fp32 products summed in another order
+# differ by about 1e-6; bf16 logits carry 8 significant bits (2^-8 = 3.9e-3
+# a step), and a replay computes the same K/V rows in other products
+TIE_FP32, TIE_BF16 = 1e-4, 1e-2
+# 8 streams of 17-token prompts decode for this long: at the step's bound
+# (about 1.05 ms) they stay well inside max_len
+THROUGHPUT_WINDOW_S = 1.0
 HOST_CALLS = 200   # wrapper calls timed on the host clock, no sync inside
 
 
@@ -406,10 +440,11 @@ def phase_slice(card, flash_fwd):
                                       init_kv_cache, prefill)
     from ray_tpu_torch.serve import DecodeSessionCore
 
-    log("== slice: llama-1b whole-prompt serving through DecodeSessionCore")
+    log("== slice: llama-1b whole-prompt serving through "
+        "DecodeSessionCore(engine=False)")
     cfg = TransformerConfig.llama("1b", param_dtype=torch.bfloat16)
     max_len = max(PROMPTS) + NEXT_STEPS + 16
-    core = DecodeSessionCore(cfg, max_len=max_len, seed=0)
+    core = DecodeSessionCore(cfg, max_len=max_len, seed=0, engine=False)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPTS]
     # one short request first, so that no timed request pays the first
@@ -498,6 +533,513 @@ def phase_slice(card, flash_fwd):
             log(f"      {ms:8.3f} ms  {name[:100]}")
     core.handle({"op": "end", "sid": sid[0]})
     return launches
+
+
+def top2_gap(logits):
+    """(top - second) / |top| of one row of logits: how near a tie the
+    argmax was."""
+    top = torch.topk(logits.float(), 2).values
+    return float((top[0] - top[1]) / top[0].abs())
+
+
+def eager_gap(params, cfg, prompt, stream, i):
+    """The engine=False path's top-2 gap where it chose stream[i]: the
+    prompt through `prefill`, then stream[:i] through `decode_step`."""
+    from ray_tpu_torch.models import decode_step, init_kv_cache, prefill
+
+    cache = init_kv_cache(cfg, 1, ENGINE_MAX_LEN)
+    logits, cache = prefill(params, torch.tensor([prompt], device="cuda"),
+                            cfg, cache)
+    for tok in stream[:i]:
+        logits, cache = decode_step(params, torch.tensor([tok], device="cuda"),
+                                    cache, cfg)
+    return top2_gap(logits[0])
+
+
+def replay_gap(params, cfg, prompt, stream, i):
+    """The top-2 gap where a replay of prompt + stream[:i] through the
+    engine's chunk programs (`resume_prefill`) chooses stream[i]."""
+    from ray_tpu_torch.models import init_kv_cache, resume_prefill
+
+    logits, _ = resume_prefill(
+        params, torch.tensor([prompt + stream[:i]], device="cuda"), cfg,
+        init_kv_cache(cfg, 1, ENGINE_MAX_LEN), chunk=ENGINE_CHUNK)
+    return top2_gap(logits[0])
+
+
+def same_or_tie(what, got, want, gap_at, tie):
+    """Streams equal, or equal up to a position where the reference's top
+    two logits are within ``tie`` of each other (a tie within the dtype's
+    rounding), which is printed either way.  → the first differing index
+    or None."""
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+    if first is None and len(got) == len(want):
+        log(f"  {what}: identical ({len(got)} tokens)")
+        return None
+    if first is None:
+        raise AssertionError(f"{what}: streams of {len(got)} and "
+                             f"{len(want)} tokens")
+    gap = gap_at(first)
+    log(f"  {what}: first differs at token {first} of {len(want)} "
+        f"({got[first]} against {want[first]}); the reference's top-2 gap "
+        f"there {gap:.3e} of the top logit (a tie if < {tie:g})")
+    if gap >= tie:
+        raise AssertionError(f"{what}: streams differ at token {first}, "
+                             f"not at a tie")
+    return first
+
+
+def drain(core, sid, toks, want, chunk=16):
+    """next_chunk(max_tokens=chunk) until ``want`` tokens; the session's
+    errors raise."""
+    while len(toks) < want:
+        out = core.handle({"op": "next_chunk", "sid": sid,
+                           "max_tokens": min(chunk, want - len(toks))})
+        if "error" in out:
+            raise AssertionError(f"session {sid}: {out['error']}")
+        if out["done"] and not out["tokens"]:
+            raise AssertionError(f"session {sid} finished after "
+                                 f"{len(toks)} of {want} tokens")
+        toks += out["tokens"]
+    return toks
+
+
+def serve_streams(core, prompts, want):
+    """Start every prompt, then drain each to ``want`` tokens and end it."""
+    starts = [core.handle({"op": "start", "prompt": p}) for p in prompts]
+    streams = [drain(core, r["sid"], list(r["token"]), want) for r in starts]
+    for r in starts:
+        core.handle({"op": "end", "sid": r["sid"]})
+    return streams
+
+
+def eager_streams(core, prompts, want):
+    out = []
+    for p in prompts:
+        r = core.handle({"op": "start", "prompt": p})
+        toks = list(r["token"])
+        while len(toks) < want:
+            toks += core.handle({"op": "next", "sid": r["sid"]})["token"]
+        core.handle({"op": "end", "sid": r["sid"]})
+        out.append(toks)
+    return out
+
+
+def prefill_chunks(n, chunk=ENGINE_CHUNK):
+    """Chunk programs an admission of n prompt tokens runs: chunks of
+    ``chunk``, then 1-token tails."""
+    return n // chunk + n % chunk
+
+
+class Clients:
+    """Client threads, each running fn(i); errors are kept, not lost."""
+
+    def __init__(self, fn, n):
+        self.errors, self.results = [], [None] * n
+
+        def run(i):
+            try:
+                self.results[i] = fn(i)
+            except Exception as e:   # reported by join()
+                self.errors.append(f"client {i}: {e!r}")
+
+        self.threads = [threading.Thread(target=run, args=(i,))
+                        for i in range(n)]
+        for t in self.threads:
+            t.start()
+
+    def join(self, timeout=300):
+        for t in self.threads:
+            t.join(timeout=timeout)
+            if t.is_alive():
+                raise AssertionError("a client thread did not finish")
+        if self.errors:
+            raise AssertionError("; ".join(self.errors))
+        return self.results
+
+
+def wait_for(cond, what, timeout=120):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def quiet(core):
+    """Wait until the engine holds no slot: an ended session leaves its
+    slot at the loop's next turn, after the last step that counted it, so
+    the engine's counters (steps, replays) are then settled."""
+    wait_for(lambda: core.handle({"op": "stats"})["engine"]
+             ["occupied_slots"] == 0, "an idle engine")
+
+
+def engine_graph_checks(card, cfg, params, out):
+    """Graph against eager from one state, step times, device busy shares,
+    chunk and speculative iteration times."""
+    from ray_tpu_torch.models import (decode_step_slots, draft_propose_slots,
+                                      init_kv_cache, init_slot_cache,
+                                      prefill_chunk, verify_step_slots)
+    from ray_tpu_torch.serve.step_graph import FusedDecodeStep
+
+    slots, max_len = ENGINE_SLOTS, ENGINE_MAX_LEN
+    cache = init_slot_cache(cfg, slots, max_len)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name in ("k", "v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=gen,
+                                      device="cuda", dtype=cfg.dtype))
+    cache["pos"].copy_(torch.tensor([5, 100, 517, 1000, 1499, 1800, 2046,
+                                     max_len - 1]))
+    saved = {name: t.clone() for name, t in cache.items()}
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, slots)
+    active = np.ones(slots, bool)
+    step = FusedDecodeStep(params, cache, cfg)
+    t0 = time.perf_counter()
+    step.capture()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def restore():
+        for name, t in saved.items():
+            cache[name].copy_(t)
+
+    restore()
+    graph_toks = step.run(tokens, active)
+    graph_logits = step.logits.clone()
+    graph_pos = cache["pos"].tolist()
+    restore()
+    tok = torch.tensor(tokens, device="cuda")
+    act = torch.tensor(active, device="cuda")
+    logits, new = decode_step_slots(params, tok, cache, act, cfg)
+    eager_toks = torch.where(act, logits.argmax(-1), tok).tolist()
+    diff = float((graph_logits - logits).abs().max())
+    rel = diff / float(logits.abs().max())
+    log(f"  graph against eager from one state (8 slots active, pos "
+        f"{saved['pos'].tolist()}): tokens equal "
+        f"{graph_toks.tolist() == eager_toks}, pos equal "
+        f"{graph_pos == new['pos'].tolist()} ({graph_pos}), logits max|diff| "
+        f"{diff:.3e}, {rel:.3e} of max|logits| (must be <= 1e-2); capture "
+        f"(2 warm-up "
+        f"steps + capture) {capture_ms:.1f} ms")
+    if not (graph_toks.tolist() == eager_toks
+            and graph_pos == new["pos"].tolist() and rel <= 1e-2):
+        raise AssertionError("the graph replay and the eager step disagree")
+    out["graph_vs_eager_rel"] = rel
+    out["capture_ms"] = capture_ms
+
+    # step times, eager against graph: device time from CUDA events over
+    # back-to-back steps, host time of one step with its token read
+    for occ in (1, slots):
+        mask = np.zeros(slots, bool)
+        mask[:occ] = True
+        restore()
+        step.load(tokens, mask)
+        graph_ms = cuda_ms(step.graph.replay, iters=100)
+        eager_ms = cuda_ms(step._step, iters=20)
+        walls = {}
+        for what, fn in (("graph", lambda: step.run(tokens, mask)),
+                         ("eager", lambda: (step.load(tokens, mask),
+                                            step._step()[1].tolist()))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            walls[what] = (time.perf_counter() - t0) * 1e3 / 50
+        log(f"  decode step, occupancy {occ} of {slots}: graph {graph_ms:.4f}"
+            f" ms device, {walls['graph']:.4f} ms host with its token read; "
+            f"eager {eager_ms:.4f} ms device, {walls['eager']:.4f} ms host "
+            f"[{card}]")
+        out[f"step_occ{occ}"] = {"graph_ms": graph_ms, "eager_ms": eager_ms,
+                                 "graph_wall_ms": walls["graph"],
+                                 "eager_wall_ms": walls["eager"]}
+
+    # where the step's time goes: one replay and one eager step, profiled
+    restore()
+    for what, fn, wall in (
+            ("graph replay", lambda: step.run(tokens, active),
+             out[f"step_occ{slots}"]["graph_wall_ms"]),
+            ("eager step", lambda: step._step()[1].tolist(),
+             out[f"step_occ{slots}"]["eager_wall_ms"])):
+        kernels = device_kernel_ms(fn)
+        if not kernels:
+            log(f"  {what}: device time not measured (the profiler recorded "
+                f"no device activity)")
+            continue
+        busy = sum(kernels.values())
+        out[f"busy_{what.split()[0]}"] = {"busy_ms": busy, "wall_ms": wall}
+        log(f"  {what}: device busy {busy:.3f} ms of {wall:.3f} ms wall "
+            f"({100 * busy / wall:.1f}%), {len(kernels)} kernel names "
+            f"[{card}]")
+        for name, ms in top_kernels(kernels, 6):
+            log(f"      {ms:8.3f} ms  {name[:100]}")
+
+    ops, launched = host_ops(lambda: step._step()[1].tolist())
+    log(f"  eager step: {ops} PyTorch ops on the host, {launched} kernels "
+        f"on the card")
+    out["eager_step_ops"] = {"ops": ops, "kernels": launched}
+
+    # one prefill chunk ([1, 32] and a [1, 1] tail) at pos 1000
+    pcache = init_kv_cache(cfg, 1, max_len)
+    for width in (ENGINE_CHUNK, 1):
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (1, width))).cuda()
+        at = dict(pcache, pos=1000)
+        ms = cuda_ms(lambda: prefill_chunk(params, toks, at, cfg), iters=20)
+        ops, launched = host_ops(lambda: prefill_chunk(params, toks, at,
+                                                       cfg))
+        log(f"  prefill chunk [1, {width}] at pos 1000: {ms:.4f} ms, {ops} "
+            f"PyTorch ops on the host, {launched} kernels [{card}]")
+        out[f"chunk{width}_ms"] = ms
+    del pcache
+
+    # one speculative iteration (shared draft, spec_k 4) over 8 slots, as
+    # the engine runs it: eager draft and verify, one token read
+    restore()
+    dcache = {name: saved[name].clone() for name in ("k", "v")}
+    k = 4
+
+    def spec_iteration():
+        step.load(tokens, active)
+        props, _ = draft_propose_slots(
+            params, step.tok, dict(dcache, pos=cache["pos"]), step.active,
+            cfg, k)
+        props = props[:, :k - 1]
+        fed = torch.cat([step.tok[:, None], props], dim=1)
+        greedy, acc, _ = verify_step_slots(params, fed, props, cache,
+                                           step.active, cfg)
+        return torch.cat([greedy, acc[:, None]], dim=1).cpu()
+
+    spec_iteration()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        spec_iteration()
+    spec_ms = (time.perf_counter() - t0) * 1e3 / 10
+    kernels = device_kernel_ms(spec_iteration)
+    busy = sum(kernels.values()) if kernels else None
+    out["spec_iteration"] = {"wall_ms": spec_ms, "busy_ms": busy}
+    log(f"  speculative iteration (draft 4 steps + verify 4 wide, eager, 8 "
+        f"slots): {spec_ms:.3f} ms wall; device busy "
+        + (f"{busy:.3f} ms, host share {100 * (1 - busy / spec_ms):.1f}%"
+           if busy else "not measured") + f" [{card}]")
+    del step, cache, saved, dcache
+
+
+def phase_engine(card, ops):
+    from ray_tpu_torch.models import (TransformerConfig, count_params,
+                                      init_params)
+    from ray_tpu_torch.serve import DecodeEngineConfig, DecodeSessionCore
+
+    log("== engine: llama-1b through the continuous-batching engine, the "
+        "decode step a CUDA graph")
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    out = {}
+    ecfg = DecodeEngineConfig(max_slots=ENGINE_SLOTS,
+                              prefill_chunk_tokens=ENGINE_CHUNK)
+    rng = np.random.default_rng(0)
+
+    # ---- fp32: the engine against the engine=False core, and speculating
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    cfg32 = TransformerConfig.llama("1b", dtype=torch.float32,
+                                    param_dtype=torch.float32)
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    prompts = [rng.integers(0, cfg32.vocab_size, n).tolist()
+               for n in STREAM_PROMPTS]
+    log(f"  fp32 streams: prompts of {STREAM_PROMPTS} tokens, "
+        f"{STREAM_TOKENS} tokens each")
+    streams = {}
+    for what, engine in (
+            ("engine", ecfg),
+            ("speculating", dataclasses.replace(ecfg, spec_draft="shared",
+                                                spec_k=4)),
+            ("engine=False", False)):
+        core = DecodeSessionCore(cfg32, max_len=ENGINE_MAX_LEN,
+                                 params=params32, engine=engine)
+        t0 = time.perf_counter()
+        streams[what] = (eager_streams if engine is False else
+                         serve_streams)(core, prompts, STREAM_TOKENS)
+        wall = time.perf_counter() - t0
+        if engine is not False:
+            st = core.handle({"op": "stats"})["engine"]
+            core.engine.shutdown()
+            core.engine._thread.join(timeout=30)
+            log(f"  {what}: {st['steps']} engine iterations, "
+                f"{st['graph_replays']} graph replays, spec {st['spec']}, "
+                f"{wall:.2f} s")
+            if what == "speculating":
+                out["fp32_spec_acceptance"] = st["spec"]["acceptance"]
+                log(f"  speculating: acceptance {st['spec']['acceptance']} "
+                    f"(shared draft: near 1.0 expected)")
+    for i, prompt in enumerate(prompts):
+        for what, got, want in (
+                ("engine against engine=False", streams["engine"][i],
+                 streams["engine=False"][i]),
+                ("speculating against the engine", streams["speculating"][i],
+                 streams["engine"][i])):
+            # the gap is the engine=False path's along the reference stream
+            same_or_tie(f"prompt {len(prompt)}: {what}", got, want,
+                        functools.partial(eager_gap, params32, cfg32, prompt,
+                                          want), TIE_FP32)
+    # nothing may keep the fp32 weights: the bf16 runs' peak memory is
+    # taken from here on
+    del core, params32
+    torch.cuda.empty_cache()
+
+    # ---- bf16: graph against eager, step, chunk and speculative times
+    cfg = TransformerConfig.llama("1b", param_dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    engine_graph_checks(card, cfg, params, out)
+    torch.cuda.empty_cache()
+
+    # ---- load: 12 sessions from client threads over 8 slots.  The main
+    # path of this phase (load, resume, throughput, TTFT) runs between the
+    # counters set to 0 here and read at the phase's end.
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    core = DecodeSessionCore(cfg, max_len=ENGINE_MAX_LEN, params=params,
+                             engine=ecfg)
+    prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX).tolist()
+    load_prompts = ([prefix + rng.integers(0, cfg.vocab_size, n).tolist()
+                     for n in SHARED_SUFFIXES]
+                    + [rng.integers(0, cfg.vocab_size, n).tolist()
+                       for n in LOAD_PROMPTS])
+    first = core.handle({"op": "start", "prompt": load_prompts[0]})
+    eng = core.engine
+    wait_for(lambda: eng.sessions[first["sid"]].slot is not None,
+             "the first sharer's slot")
+
+    def session(i):
+        r = first if i == 0 else core.handle({"op": "start",
+                                              "prompt": load_prompts[i]})
+        toks = drain(core, r["sid"], list(r["token"]), LOAD_TOKENS + 1)
+        core.handle({"op": "end", "sid": r["sid"]})
+        return toks
+
+    t0 = time.perf_counter()
+    load_streams = Clients(session, len(load_prompts)).join()
+    load_s = time.perf_counter() - t0
+    quiet(core)
+    st = core.handle({"op": "stats"})["engine"]
+    want_chunks = sum(prefill_chunks(len(p) - (SHARED_PREFIX if 0 < i < len(
+        SHARED_SUFFIXES) else 0)) for i, p in enumerate(load_prompts))
+    in_range = all(0 <= t < cfg.vocab_size for s in load_streams for t in s)
+    launches = {k.__name__: k.launches for k in kernels}
+    log(f"  load: {len(load_prompts)} sessions over {ENGINE_SLOTS} slots "
+        f"(prompts {[len(p) for p in load_prompts]}), {LOAD_TOKENS} tokens "
+        f"each after the first, in {load_s:.2f} s: {st['tokens']} tokens "
+        f"decoded in {st['steps']} steps ({st['graph_replays']} graph "
+        f"replays), {st['prefill_chunks']} prefill chunks (reckoned "
+        f"{want_chunks}), prefix {st['prefix']}, tokens in range "
+        f"{in_range}, kernel launches {launches} [{card}]")
+    if not (in_range and all(len(s) == LOAD_TOKENS + 1
+                             for s in load_streams)):
+        raise AssertionError("a load session gave a wrong stream")
+    if st["prefix"]["applied_hits"] != len(SHARED_SUFFIXES) - 1 or \
+            st["prefix"]["tokens_reused"] != \
+            SHARED_PREFIX * (len(SHARED_SUFFIXES) - 1):
+        raise AssertionError("the sharers were not seeded from the prefix")
+    if st["prefill_chunks"] != want_chunks:
+        raise AssertionError("prefill chunks differ from the reckoning")
+    if any(launches.values()):
+        raise AssertionError("the engine path launched a flash kernel")
+    if st["graph_replays"] != st["steps"]:
+        raise AssertionError("a step ran outside the graph")
+    out["load"] = {"sessions": len(load_prompts), "wall_s": load_s,
+                   "tokens": st["tokens"], "steps": st["steps"],
+                   "prefill_chunks": st["prefill_chunks"],
+                   "prefix_hits": st["prefix"]["applied_hits"]}
+
+    # ---- failover: resume a half-drained stream, bf16
+    i = len(SHARED_SUFFIXES) + 2
+    prompt, stream = load_prompts[i], load_streams[i]
+    cut = len(stream) // 2
+    rr = core.handle({"op": "resume", "prompt": prompt,
+                      "generated": stream[:cut]})
+    resumed = drain(core, rr["sid"], stream[:cut] + list(rr["token"]),
+                    len(stream))
+    core.handle({"op": "end", "sid": rr["sid"]})
+    out["resume_diverged_at"] = same_or_tie(
+        f"resume of the {len(prompt)}-token session at token {cut} "
+        f"(seq {rr['seq']})", resumed, stream,
+        functools.partial(replay_gap, params, cfg, prompt, stream), TIE_BF16)
+
+    # ---- aggregate tokens/s at 8 slots, then TTFT idle and under load
+    stop = threading.Event()
+
+    def streaming(i):
+        """A client draining its stream until told to stop."""
+        r = core.handle({"op": "start", "prompt": prompts[0]})
+        n = 1
+        while not stop.is_set():
+            got = core.handle({"op": "next_chunk", "sid": r["sid"],
+                               "max_tokens": 16})
+            if "error" in got or got["done"]:
+                raise AssertionError(f"stream {i} ended early: {got}")
+            n += len(got["tokens"])
+        core.handle({"op": "end", "sid": r["sid"]})
+        return n
+
+    for streams_n in (ENGINE_SLOTS, ENGINE_SLOTS - 1):
+        quiet(core)
+        if streams_n == ENGINE_SLOTS - 1:
+            t0 = time.perf_counter()
+            r = core.handle({"op": "start", "prompt": prompts[2]})
+            out["ttft_idle_ms"] = (time.perf_counter() - t0) * 1e3
+            core.handle({"op": "end", "sid": r["sid"]})
+            quiet(core)
+        stop.clear()
+        clients = Clients(streaming, streams_n)
+        wait_for(lambda: core.handle({"op": "stats"})["engine"]
+                 ["occupied_slots"] == streams_n, "every stream in a slot")
+        if streams_n == ENGINE_SLOTS:
+            a = core.handle({"op": "stats"})["engine"]
+            t0 = time.perf_counter()
+            time.sleep(THROUGHPUT_WINDOW_S)
+            b = core.handle({"op": "stats"})["engine"]
+            dt = time.perf_counter() - t0
+            out["tokens_per_s_8"] = (b["tokens"] - a["tokens"]) / dt
+            out["ms_per_step_8"] = dt * 1e3 / max(1, b["steps"] - a["steps"])
+            log(f"  8 streams decoding: {out['tokens_per_s_8']:.1f} tokens/s"
+                f" aggregate, {out['ms_per_step_8']:.3f} ms per engine step "
+                f"({THROUGHPUT_WINDOW_S:g} s window) [{card}]")
+        else:
+            t0 = time.perf_counter()
+            r = core.handle({"op": "start", "prompt": prompts[2]})
+            out["ttft_load_ms"] = (time.perf_counter() - t0) * 1e3
+            core.handle({"op": "end", "sid": r["sid"]})
+            log(f"  TTFT of a {len(prompts[2])}-token prompt: idle "
+                f"{out['ttft_idle_ms']:.2f} ms, while 7 streams decode "
+                f"{out['ttft_load_ms']:.2f} ms "
+                f"({prefill_chunks(len(prompts[2]))} chunk programs) "
+                f"[{card}]")
+        stop.set()
+        clients.join()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    quiet(core)
+    st = core.handle({"op": "stats"})["engine"]
+    log(f"  peak memory over the bf16 serving runs {out['peak_gib']:.2f} GiB"
+        f" (bf16 weights {count_params(cfg) * 2 / 2**30:.2f} GiB); engine "
+        f"totals: {st['steps']} steps, {st['graph_replays']} graph "
+        f"replays, {st['tokens']} tokens [{card}]")
+    if st["graph_replays"] != st["steps"]:
+        raise AssertionError("a step ran outside the graph")
+    log("  dispatch profile (MFU against 989 TFLOP/s):")
+    for row in st["device_profile"]:
+        log(f"      {json.dumps(row)}")
+    out["device_profile"] = st["device_profile"]
+    core.engine.shutdown()
+    core.engine._thread.join(timeout=30)
+    launches = {k.__name__: k.launches for k in kernels}
+    if any(launches.values()):
+        raise AssertionError(f"the engine phase launched {launches}")
+    del core, params
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 def phase_train(card, ops):
@@ -628,6 +1170,26 @@ def device_kernel_ms(fn):
     return by_name
 
 
+def host_ops(fn):
+    """(PyTorch ops the host issued, kernels the card ran) for one call of
+    ``fn``, from torch.profiler: top-level CPU ops (views included) and
+    CUDA kernel events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ops = sum(1 for e in events if e.device_type == DeviceType.CPU
+              and e.cpu_parent is None)
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    return ops, kernels
+
+
 def hopper_instance(function):
     """'flash_bwd_dkv_hopper_kernel<64, 128>' from a mangled name; None for
     any other kernel."""
@@ -684,6 +1246,7 @@ def main():
             *phase_bwd_kernels(card, ops)]
     by_path = {"serve": {"flash_fwd": phase_slice(card, ops.flash_fwd)}}
     torch.cuda.empty_cache()
+    by_path["engine"], engine = phase_engine(card, ops)
     by_path["train"] = phase_train(card, ops)
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
@@ -691,6 +1254,7 @@ def main():
                                    if row["name"] in counts}
         row["launches"] = sum(row["launches_by_path"].values())
     log(card)
+    print(json.dumps({"engine": engine}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

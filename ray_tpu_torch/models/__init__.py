@@ -1,17 +1,28 @@
 """Model zoo of the port (counterpart of ``ray_tpu.models``): the
-decoder-only transformer family, its whole-prompt generation path, its loss
-and its training step."""
+decoder-only transformer family, its whole-prompt generation path, the
+continuous-batching engine's slot functions, its loss and its training
+step."""
 
 from .generate import (  # noqa: F401
+    cache_gather_slot,
+    cache_insert_slot,
     decode_step,
+    decode_step_slots,
+    draft_propose_slots,
     generate,
     init_kv_cache,
+    init_slot_cache,
     prefill,
+    prefill_chunk,
+    prefill_chunked,
+    resume_prefill,
+    verify_step_slots,
 )
 from .transformer import (  # noqa: F401
     TransformerConfig,
     count_params,
     decode_flops_per_token,
+    engine_flops_table,
     flops_per_token,
     forward,
     forward_with_aux,

@@ -168,6 +168,30 @@ def decode_flops_per_token(cfg: TransformerConfig,
     return 2 * n_matmul + attn
 
 
+def engine_flops_table(cfg: TransformerConfig, max_len: int,
+                       draft_cfg: Optional[TransformerConfig] = None
+                       ) -> Dict[str, float]:
+    """Analytic FLOPs per token of each program of the serve engine (the
+    dispatch profiler's MFU numerators), at the mid-stream cache position
+    ``max_len // 2``, the average context a token attends over a full
+    stream.  The copy programs (cache insert/gather) are 0: they move
+    bytes, not FLOPs."""
+    mid = max(1, max_len // 2)
+    target = decode_flops_per_token(cfg, mid)
+    table = {
+        "decode_step": target,
+        "prefill_chunk": target,   # per prompt token, the same forward
+        "verify": target,          # spec_k-wide target forward per token
+        "cache_insert": 0.0,
+        "prefix_gather": 0.0,
+    }
+    if draft_cfg is not None:
+        draft = decode_flops_per_token(draft_cfg, mid)
+        table["draft_propose"] = draft
+        table["draft_prefill_chunk"] = draft
+    return table
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------

@@ -1,4 +1,9 @@
 """Serving of the port (counterpart of ``ray_tpu.serve``): the decode
-session core of the whole-prompt path."""
+session core, its continuous-batching engine and the engine's knobs."""
 
-from .decode_session import DecodeSessionCore  # noqa: F401
+from .config import DecodeEngineConfig  # noqa: F401
+from .decode_session import (  # noqa: F401
+    ContinuousBatchingEngine,
+    DecodeSessionCore,
+)
+from .prefix_cache import PrefixIndex  # noqa: F401

@@ -1,0 +1,2 @@
+"""Host-side utilities of the port (counterpart of ``ray_tpu.util``): the
+dispatch profiler of the serve engine."""

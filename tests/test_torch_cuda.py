@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+serve engine's decode step captured as a CUDA graph, on the card.
 
 Marked ``gpu``; every test skips where no CUDA device is present (the
 kernels have no CPU mode).  Run on a machine with a card:
@@ -8,6 +9,8 @@ kernels have no CPU mode).  Run on a machine with a card:
 (The suite's conftest imports JAX; on a machine without it, add
 ``--noconftest``.)
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -246,3 +249,94 @@ def test_flash_bwd_rejects_what_the_kernels_do_not_take(cuda):
                      .transpose(1, 2), True, 0.125)
     with pytest.raises(ValueError, match="device"):
         flash_bwd_dkv(q, k, v, o, lse.cpu(), delta, True, 0.125)
+
+
+# -- the serve engine's decode step as a CUDA graph ---------------------------
+
+def _tiny_slot_state(device, dtype, slots=4, max_len=64, seed=0):
+    """A tiny llama's params and a slot cache of random K/V, each slot at
+    another pos (one on the last row, one past the end)."""
+    from ray_tpu_torch.models import (TransformerConfig, init_params,
+                                      init_slot_cache)
+
+    cfg = TransformerConfig.tiny(dtype=dtype, param_dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device)
+    cache = init_slot_cache(cfg, slots, max_len, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    for name in ("k", "v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=gen,
+                                      device=device, dtype=dtype))
+    cache["pos"].copy_(torch.tensor([5, max_len - 1, 17, max_len][:slots]))
+    return cfg, params, cache
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_decode_step_graph_matches_the_eager_step(cuda, dtype):
+    from ray_tpu_torch.models import decode_step_slots
+    from ray_tpu_torch.serve.step_graph import FusedDecodeStep
+
+    cfg, params, cache = _tiny_slot_state(cuda, DTYPES[dtype])
+    saved = {name: t.clone() for name, t in cache.items()}
+    tokens = np.array([3, 9, 27, 81])
+    active = np.array([True, True, False, True])
+    step = FusedDecodeStep(params, cache, cfg)
+    step.capture()
+    for name, t in saved.items():       # the warm-up wrote K/V rows
+        cache[name].copy_(t)
+    got = step.run(tokens, active)
+    assert step.replays == 1
+    graph_logits = step.logits.clone()
+    graph_cache = {name: t.clone() for name, t in cache.items()}
+    logits, want_cache = decode_step_slots(
+        params, torch.tensor(tokens, device=cuda), saved,
+        torch.tensor(active, device=cuda), cfg)
+    want = torch.where(torch.tensor(active, device=cuda), logits.argmax(-1),
+                       torch.tensor(tokens, device=cuda))
+    assert got.tolist() == want.tolist()
+    assert graph_cache["pos"].tolist() == want_cache["pos"].tolist()
+    assert torch.equal(graph_logits, logits)
+    assert torch.equal(graph_cache["k"], want_cache["k"])
+    assert torch.equal(graph_cache["v"], want_cache["v"])
+
+
+def test_engine_on_the_card_matches_the_cpu_in_fp32(cuda):
+    """Three sessions through an engine core on the card (the decode step
+    a CUDA graph) and through the same core on the CPU: fp32 streams
+    identical."""
+    from ray_tpu_torch.models import TransformerConfig, init_params
+    from ray_tpu_torch.serve import DecodeSessionCore
+
+    cfg = TransformerConfig.tiny(dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (3, 40, 17)]
+    streams = {}
+    for device in ("cpu", cuda):
+        core = DecodeSessionCore(
+            cfg, max_len=64, device=device,
+            params={k: ({n: w.to(device) for n, w in v.items()}
+                        if isinstance(v, dict) else v.to(device))
+                    for k, v in params.items()})
+        starts = [core.handle({"op": "start", "prompt": p}) for p in prompts]
+        out = []
+        for r in starts:
+            toks = list(r["token"])
+            while len(toks) < 20:
+                got = core.handle({"op": "next_chunk", "sid": r["sid"],
+                                   "max_tokens": 20 - len(toks)})
+                assert "error" not in got, got
+                toks += got["tokens"]
+            core.handle({"op": "end", "sid": r["sid"]})
+            out.append(toks)
+        # ended sessions leave their slots at the loop's next turn, after
+        # the last step that counted them: the counters are then settled
+        while core.handle({"op": "stats"})["engine"]["occupied_slots"]:
+            time.sleep(0.01)
+        stats = core.handle({"op": "stats"})["engine"]
+        core.engine.shutdown()
+        streams[str(device)] = out
+        if device != "cpu":
+            assert stats["graph_replays"] == stats["steps"] > 0
+    assert streams["cpu"] == streams[str(cuda)]

@@ -337,7 +337,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
 
 
 def test_entry_points_raise_without_cuda_and_device(monkeypatch):
-    from ray_tpu_torch.models import TransformerConfig, init_kv_cache
+    from ray_tpu_torch.models import (TransformerConfig, init_kv_cache,
+                                      init_slot_cache)
     from ray_tpu_torch.serve import DecodeSessionCore
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -346,3 +347,5 @@ def test_entry_points_raise_without_cuda_and_device(monkeypatch):
         DecodeSessionCore(cfg, max_len=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_kv_cache(cfg, 1, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_slot_cache(cfg, 2, 16)

@@ -25,7 +25,7 @@ def _cores(max_len, max_sessions=64):
                                 tcfg, "cpu")
     return (JCore(jcfg, max_len=max_len, engine=False, params=jparams,
                   max_sessions=max_sessions),
-            TCore(tcfg, max_len=max_len, params=tparams,
+            TCore(tcfg, max_len=max_len, engine=False, params=tparams,
                   max_sessions=max_sessions, device="cpu"))
 
 
@@ -75,9 +75,36 @@ def test_error_replies_and_lru_eviction():
         assert core.handle({"op": "stats"})["legacy_sessions"] == 1
 
 
-def test_unported_options_raise():
-    cfg = TConfig.tiny(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="engine slice"):
-        TCore(cfg, max_len=16, device="cpu", engine=True)
-    with pytest.raises(NotImplementedError, match="engine slice"):
-        TCore(cfg, max_len=16, device="cpu", prefill_chunk=8)
+def test_the_engine_is_the_default_core():
+    """TCore(cfg) serves on the continuous-batching engine, as the JAX
+    package's core does; engine=False keeps the eager path."""
+    _, tcore = _cores(max_len=16)
+    engine_core = TCore(tcore.cfg, max_len=16, params=tcore.params,
+                        device="cpu")
+    assert engine_core._engine_cfg is not None and tcore._engine_cfg is None
+    r = engine_core.handle({"op": "start", "prompt": _prompt(5, 3)})
+    assert isinstance(r["sid"], str) and r["proto"] == "chunk"
+    assert "engine" in engine_core.handle({"op": "stats"})
+    assert engine_core.handle({"op": "end", "sid": r["sid"]}) == \
+        {"ended": True}
+    engine_core.engine.shutdown()
+
+
+@pytest.mark.parametrize("prompt_len,chunk", [(10, 8), (16, 8), (5, 8)])
+def test_chunked_prefill_core_matches_jax(prompt_len, chunk):
+    """prefill_chunk > 0 on engine=False: the prompt in chunks through
+    prefill_chunked, as the JAX core does."""
+    jbase, tbase = _cores(max_len=32)
+    jcore = JCore(jbase.cfg, max_len=32, engine=False, params=jbase.params,
+                  prefill_chunk=chunk)
+    tcore = TCore(tbase.cfg, max_len=32, engine=False, params=tbase.params,
+                  prefill_chunk=chunk, device="cpu")
+    prompt = _prompt(prompt_len, prompt_len)
+    assert _run(tcore, prompt, 6)[1] == _run(jcore, prompt, 6)[1]
+
+
+@pytest.mark.parametrize("option", [dict(n_experts=4), dict(pp_stages=2)])
+def test_unported_options_raise(option):
+    """Options of a later slice still refuse to run."""
+    with pytest.raises(NotImplementedError, match="parallelism slice"):
+        TConfig.tiny(dtype=torch.float32, **option)
