@@ -17,7 +17,11 @@ Phases, each fatal on failure:
                and library times from CUDA events beside the bound the card
                could reach, at the main shape (the forward at both main
                paths' shapes, with its host time per call; the backward
-               also as a whole, delta and both kernels, beside SDPA's);
+               also as a whole, delta and both kernels, beside SDPA's),
+               and device times from torch.profiler (from CUDA events,
+               said so, where three profiler sessions record no device
+               activity); a fault on the card names the case and whether
+               the kernel or the plain version met it;
   4. slice   — llama-1b (bf16 weights from a seed) served by the port's
                DecodeSessionCore(engine=False): three requests (prompts of
                2048, 1000 and 17 tokens, each start + 16 next + end), then
@@ -48,14 +52,38 @@ Phases, each fatal on failure:
                and read just after (fwd 32, dq 16, dkv 16 a step); the loss
                must be finite and fall; one step with accum_steps=2; one
                step's loss and gradients against reference attention; step
-               time, tokens/s, MFU, peak memory and one profiled step.
-Then one JSON line of the engine's numbers, one of the kernels, and last the
-device line.  Exits non-zero
-without a result when no CUDA device is present.
+               time, tokens/s, MFU, peak memory and one profiled step;
+  7. moe     — gpt2-small with 8 experts, top 2 (the JAX package's MoE
+               training row, tpu_probe21.py:34): 8 train steps on one batch
+               of 4 x 1024 tokens (remat off, norm_remat, loss_chunk 128,
+               fp32 weights, torch.optim.AdamW; launches fwd, dq, dkv 12 each
+               a step), the loss falling, the router aux loss > 0, one step's
+               loss and gradients (router, w_in, w_out, wq) against reference
+               attention, step time, tokens/s, MFU of the active FLOPs, peak
+               memory, a profiled step and one MoE layer's time by part
+               (routing, dispatch, experts, combine) with its capacity's
+               fill; then served at max_len 1024: fp32 streams (prompts of
+               17, 300 and 900 tokens) through the engine and speculating
+               (identical but for a printed near-tie), and at capacity factor
+               4.0 (no token drops) through the engine and engine=False (12
+               flash launches a start); bf16 graph replay bitwise the eager
+               step, 8 streams' tokens/s, a 900-token TTFT, 0 flash launches
+               on the engine;
+  8. vit     — ViT-B/16 at 224 x 224 (tpu_probe20.py:92, :95): 8 train steps
+               at batch 64 (launches 12 each a step, the loss falling, one
+               step against reference attention, images/s, MFU, peak
+               memory), then batch-predict at 256 (images/s, 12 flash
+               launches, logits against reference attention).
+The kernel phases also hold and time each kernel at the MoE train shape and
+the ViT shapes.  Each phase prints its seconds.  Then one JSON line of the
+engine's numbers, one of the moe and vit phases' (with the phase seconds),
+one of the kernels, and last the device line.  Exits non-zero without a
+result when no CUDA device is present.
 """
 
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -94,6 +122,12 @@ CASES = [
     ("non-causal", 2, 1000, 1000, 32, 8, 64, torch.bfloat16, False),
     ("d128", 1, 2048, 2048, 24, 8, 128, torch.bfloat16, True),
     ("fp32", 1, 1024, 1024, 32, 8, 64, torch.float32, True),
+    # gpt2-small's MoE train step (MHA, 12 heads) and ViT-B/16's train and
+    # batch-predict shapes (197 rows: two 128-row tiles, the second 54%
+    # full; bidirectional)
+    ("moe-train", 4, 1024, 1024, 12, 12, 64, torch.bfloat16, True),
+    ("vit", 64, 197, 197, 12, 12, 64, torch.bfloat16, False),
+    ("vit-predict", 256, 197, 197, 12, 12, 64, torch.bfloat16, False),
 ]
 PROMPTS = (2048, 1000, 17)
 NEXT_STEPS = 16
@@ -114,7 +148,13 @@ BWD_CASES = [
     ("d128", 1, 2048, 2048, 24, 8, 128, torch.bfloat16, True),
     ("fp32", 1, 1024, 1024, 32, 8, 64, torch.float32, True),
     ("MHA", 2, 1024, 1024, 16, 16, 64, torch.bfloat16, True),
+    ("moe-train", 4, 1024, 1024, 12, 12, 64, torch.bfloat16, True),
+    ("vit", 64, 197, 197, 12, 12, 64, torch.bfloat16, False),
 ]
+# the shapes each kernel is timed at: {label: case name}
+TIMED_FWD = {"serve": "main", "train": "train", "moe_train": "moe-train",
+             "vit": "vit", "vit_predict": "vit-predict"}
+TIMED_BWD = {"train": "main", "moe_train": "moe-train", "vit": "vit"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
 # the engine phase: llama-1b, DecodeEngineConfig(max_slots=8,
 # prefill_chunk_tokens=32), max_len 2048
@@ -132,6 +172,16 @@ TIE_FP32, TIE_BF16 = 1e-4, 1e-2
 # 8 streams of 17-token prompts decode for this long: at the step's bound
 # (about 1.05 ms) they stay well inside max_len
 THROUGHPUT_WINDOW_S = 1.0
+# the moe phase: gpt2-small with 8 experts, top 2, the JAX package's MoE
+# training row (tpu_probe21.py:34, small_moe_e8k2_b4, run by
+# probe_common.py:93-123); served at its max_seq_len with the engine
+# phase's DecodeEngineConfig
+MOE_CONFIG = dict(n_experts=8, expert_top_k=2)
+MOE_MAX_LEN = 1024
+MOE_STREAM_PROMPTS, MOE_TTFT_PROMPT = (17, 300, 900), 900
+# the vit phase: ViT-B/16, train at batch 64 and batch-predict at 256
+# (tpu_probe20.py:92, :95)
+VIT_TRAIN_BATCH, VIT_PREDICT_BATCH = 64, 256
 HOST_CALLS = 200   # wrapper calls timed on the host clock, no sync inside
 
 
@@ -152,6 +202,15 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def on_card(what):
+    """Wait for the card; a fault of the work queued so far is raised
+    naming ``what``, the last step queued."""
+    try:
+        torch.cuda.synchronize()
+    except Exception as err:
+        raise RuntimeError(f"the card faulted in or before: {what}") from err
 
 
 def qkv(seed, b, s_q, s_kv, h, h_kv, d, dtype):
@@ -187,6 +246,10 @@ def attention_bound(b, s_q, s_kv, h, h_kv, d, dtype, causal, products=2,
                                        else "bytes")
 
 
+def named(cases, name):
+    return next(case for case in cases if case[0] == name)
+
+
 def fwd_matches(o, lse, o_ref, lse_ref, dtype):
     """→ (agrees, max |ΔO|, max |ΔLSE|, largest tile error of O)."""
     from ray_tpu_torch.ops import tile_rel_err
@@ -201,39 +264,78 @@ def fwd_matches(o, lse, o_ref, lse_ref, dtype):
     return ok, float(err_o.max()), err_lse, tile
 
 
-def time_fwd(card, ops, what, b, s, h, h_kv, d, dtype):
+def device_ms(fn, match=None, calls=10, tries=3):
+    """Device time (ms) of one call of ``fn``: the time of its kernels
+    (those whose name holds ``match``, when given) from torch.profiler over
+    ``calls`` calls back to back.  Unlike CUDA events around back-to-back
+    calls, it does not grow when the host's time a call exceeds the
+    kernels' (a short kernel behind a slow host).  A profiler session now
+    and then records no device activity at all; after ``tries`` such
+    sessions the time comes from CUDA events around the same calls, which
+    is at least the device time, and a line says so."""
+    fn()
+    seen = set()
+    for _ in range(tries):
+        kernels = device_kernel_ms(lambda: [fn() for _ in range(calls)])
+        total = sum(ms for name, ms in kernels.items()
+                    if match is None or match in name)
+        if total:
+            return total / calls
+        seen.update(kernels)
+    if seen:   # device activity every so often, but never the named kernel
+        raise AssertionError(f"the profiler saw no kernel named {match}: "
+                             f"{sorted(seen)[:8]}")
+    ms = cuda_ms(fn, iters=calls, warmup=0)
+    log(f"  the profiler recorded no device activity in {tries} sessions: "
+        f"{ms:.4f} ms a call from CUDA events instead")
+    return ms
+
+
+def time_fwd(card, ops, what, b, s, h, h_kv, d, dtype, causal=True):
     """Kernel, plain, library and host times of the forward at one shape
-    (causal, s_q = s_kv = s), beside its bound."""
+    (s_q = s_kv = s), beside its bound: kernel and library by CUDA events
+    over back-to-back calls and by their kernels' device time."""
     q, k, v = qkv(1, b, s, s, h, h_kv, d, dtype)
     scale = d ** -0.5
-    ms = cuda_ms(lambda: ops.flash_fwd(q, k, v, True, scale), iters=50)
+
+    def kernel():
+        return ops.flash_fwd(q, k, v, causal, scale)
+
+    ms = cuda_ms(kernel, iters=50)
+    kernel_device_ms = device_ms(kernel, "flash_fwd_hopper_kernel")
     plain_ms = cuda_ms(
-        lambda: ops.flash_attention_plain(q, k, v, True, scale), iters=5,
+        lambda: ops.flash_attention_plain(q, k, v, causal, scale), iters=5,
         warmup=1)
     # yardstick only, never called by the port: at s_q = s_kv its top-left
     # causal mask is the same as the bottom-right one
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True),
-        iters=50)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
+
+    library_ms = cuda_ms(library, iters=50)
+    library_device_ms = device_ms(library)
     # the wrapper's host time per call: checks, allocation, the tensor maps,
     # the launch; the card runs behind
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(HOST_CALLS):
-        ops.flash_fwd(q, k, v, True, scale)
+        ops.flash_fwd(q, k, v, causal, scale)
     host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
     torch.cuda.synchronize()
-    bound_ms, bound_by = attention_bound(b, s, s, h, h_kv, d, dtype, True)
-    log(f"  {what} shape (b={b} s={s}) timing: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} "
-        f"ms ({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}); "
-        f"kernel at {100 * bound_ms / ms:.1f}% of the bound; wrapper host "
-        f"time {host_us:.1f} us a call [{card}]")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "host_us": host_us}
+    bound_ms, bound_by = attention_bound(b, s, s, h, h_kv, d, dtype, causal)
+    log(f"  {what} shape (b={b} s={s} h={h}/{h_kv} causal={causal}) timing: "
+        f"kernel {ms:.4f} ms ({kernel_device_ms:.4f} ms of device time), "
+        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms ({library_device_ms:.4f} device; "
+        f"{kernel_device_ms / library_device_ms:.2f}x), bound {bound_ms:.4f} "
+        f"ms ({bound_by}); kernel at {100 * bound_ms / kernel_device_ms:.1f}%"
+        f" of the bound; wrapper host time {host_us:.1f} us a call [{card}]")
+    return {"ms": ms, "device_ms": kernel_device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_device_ms": library_device_ms, "host_us": host_us}
 
 
 def phase_kernels(card, ops):
@@ -242,9 +344,13 @@ def phase_kernels(card, ops):
     for name, b, s_q, s_kv, h, h_kv, d, dtype, causal in CASES:
         q, k, v = qkv(0, b, s_q, s_kv, h, h_kv, d, dtype)
         scale = d ** -0.5
+        # a fault names its case and whether the kernel or the plain
+        # version ran into it
+        on_card(f"inputs of case {name}")
         o, lse = ops.flash_fwd(q, k, v, causal, scale)
-        torch.cuda.synchronize()
+        on_card(f"flash_fwd, case {name}")
         o_ref, lse_ref = ops.flash_attention_plain(q, k, v, causal, scale)
+        on_card(f"flash_attention_plain, case {name}")
         ok, err_o, err_lse, tile = fwd_matches(o, lse, o_ref, lse_ref, dtype)
         tol_o, tol_lse = TOL[dtype]
         log(f"  {name:<10} b={b} s_q={s_q} s_kv={s_kv} h={h}/{h_kv} d={d} "
@@ -278,9 +384,11 @@ def phase_kernels(card, ops):
             main_err = err_o
         del q, k, v, o, lse, o_ref, lse_ref
 
-    by_shape = {what: time_fwd(card, ops, what, b, s_q, h, h_kv, d, dtype)
-                for what, (_, b, s_q, _, h, h_kv, d, dtype, _)
-                in zip(("serve", "train"), CASES)}
+    by_shape = {}
+    for what, case in TIMED_FWD.items():
+        _, b, s_q, _, h, h_kv, d, dtype, causal = named(CASES, case)
+        by_shape[what] = time_fwd(card, ops, what, b, s_q, h, h_kv, d, dtype,
+                                  causal)
     serve = by_shape["serve"]
     return {"name": "flash_fwd", "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_fwd.cu",
@@ -340,9 +448,10 @@ def phase_bwd_kernels(card, ops):
         scale = d ** -0.5
         o, lse = ops.flash_fwd(q, k, v, causal, scale)
         got = ops.flash_bwd(q, k, v, o, lse, do, causal, scale)
-        torch.cuda.synchronize()
+        on_card(f"flash_fwd and flash_bwd, case {name}")
         want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                              scale)
+        on_card(f"flash_attention_bwd_plain, case {name}")
         errs, tiles = [], []
         for g, w in zip(got, want):
             ok, tile = bwd_matches(g, w, dtype)
@@ -388,25 +497,66 @@ def phase_bwd_kernels(card, ops):
     log(f"  {name}: dQ, dK, dV bitwise the same over two calls: {same}")
     if not all(same):
         raise AssertionError("flash_bwd is not deterministic")
-    del first, second
+    del q, k, v, do, o, lse, first, second
+    by_shape = {what: time_bwd(card, ops, what, *named(BWD_CASES, case)[1:])
+                for what, case in TIMED_BWD.items()}
+    rows = []
+    for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+        main = by_shape["train"]
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                     "kernel": f"{kname}_hopper_kernel",
+                     "replaces": ("ray_tpu/ops/flash_attention.py:202"
+                                  if kname == "flash_bwd_dq" else
+                                  "ray_tpu/ops/flash_attention.py:241"),
+                     "max_abs_err": main_err[kname], **main[kname],
+                     "library_ms": main["library_ms"],
+                     "bwd_whole_ms": main["whole_ms"],
+                     "by_shape": {what: dict(
+                         t[kname], library_ms=t["library_ms"],
+                         library_wall_ms=t["library_wall_ms"],
+                         bwd_whole_ms=t["whole_ms"], delta_ms=t["delta_ms"])
+                         for what, t in by_shape.items()}})
+    return rows
+
+
+def time_bwd(card, ops, what, b, s_q, s_kv, h, h_kv, d, dtype, causal):
+    """Times of the backward at one shape: flash_bwd as a whole, delta
+    alone, SDPA's backward (its kernels' device time, and a call's time back
+    to back), and each kernel and its plain version beside its bound.
+    → {"whole_ms", "delta_ms", "library_ms", "library_wall_ms", kernel
+    name: {"ms", "plain_ms", "bound_ms", "bound_by"}}."""
+    q, k, v = qkv(5, b, s_q, s_kv, h, h_kv, d, dtype)
+    do = randn(6, (b, s_q, h, d), dtype)
+    scale = d ** -0.5
+    o, lse = ops.flash_fwd(q, k, v, causal, scale)
     args = (q, k, v, do, lse, delta_of(o, do), causal, scale)
     # yardstick only, never called by the port: the backward of
-    # scaled_dot_product_attention (dQ, dK and dV in one call)
+    # scaled_dot_product_attention (dQ, dK and dV in one call); at s_q =
+    # s_kv its top-left causal mask is the bottom-right one
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), iters=20)
-    whole_ms = cuda_ms(
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    # the autograd call spends more host time than its kernels take, so
+    # CUDA events around back-to-back calls time the host: its kernels'
+    # device time comes from the profiler
+    times = {"library_wall_ms": cuda_ms(library, iters=20),
+             "library_ms": device_ms(library, calls=5)}
+    times["whole_ms"] = cuda_ms(
         lambda: ops.flash_bwd(q, k, v, o, lse, do, causal, scale), iters=20)
-    delta_ms = cuda_ms(lambda: delta_of(o, do), iters=20)
-    log(f"  flash_bwd as a whole (delta + dQ + dK/dV) {whole_ms:.4f} ms, "
-        f"delta alone {delta_ms:.4f} ms; scaled_dot_product_attention "
-        f"backward {library_ms:.4f} ms ({whole_ms / library_ms:.2f}x) "
-        f"[{card}]")
-    rows = []
+    times["delta_ms"] = cuda_ms(lambda: delta_of(o, do), iters=20)
+    log(f"  {what} shape (b={b} s={s_q} h={h}/{h_kv} causal={causal}): "
+        f"flash_bwd as a whole (delta + dQ + dK/dV) {times['whole_ms']:.4f} "
+        f"ms, delta alone {times['delta_ms']:.4f} ms; "
+        f"scaled_dot_product_attention backward {times['library_ms']:.4f} "
+        f"ms of device time ({times['whole_ms'] / times['library_ms']:.2f}x;"
+        f" {times['library_wall_ms']:.4f} ms a call back to back) [{card}]")
     for kernel, plain, counts in (
             (ops.flash_bwd_dq, ops.flash_bwd_dq_plain,
              dict(products=3, q_like=3, kv_like=2, stats=2)),
@@ -414,25 +564,19 @@ def phase_bwd_kernels(card, ops):
              dict(products=4, q_like=2, kv_like=4, stats=2))):
         kname = kernel.__name__
         ms = cuda_ms(lambda: kernel(*args), iters=20)
+        dev = device_ms(lambda: kernel(*args), f"{kname}_hopper_kernel")
         plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
         bound_ms, bound_by = attention_bound(b, s_q, s_kv, h, h_kv, d,
                                              dtype, causal, **counts)
-        log(f"  {kname} main shape timing: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, scaled_dot_product_attention backward "
-            f"(dQ+dK+dV) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}); kernel at {100 * bound_ms / ms:.1f}% of the "
+        log(f"  {kname} {what} shape timing: kernel {ms:.4f} ms ({dev:.4f} "
+            f"ms of device time), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention backward (dQ+dK+dV) "
+            f"{times['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}); kernel at {100 * bound_ms / dev:.1f}% of the "
             f"bound [{card}]")
-        rows.append({"name": kname, "route": "cuda",
-                     "source": "ray_tpu_torch/csrc/flash_bwd.cu",
-                     "kernel": f"{kname}_hopper_kernel",
-                     "replaces": ("ray_tpu/ops/flash_attention.py:202"
-                                  if kname == "flash_bwd_dq" else
-                                  "ray_tpu/ops/flash_attention.py:241"),
-                     "max_abs_err": main_err[kname], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "bwd_whole_ms": whole_ms})
-    return rows
+        times[kname] = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+    return times
 
 
 def phase_slice(card, flash_fwd):
@@ -542,12 +686,12 @@ def top2_gap(logits):
     return float((top[0] - top[1]) / top[0].abs())
 
 
-def eager_gap(params, cfg, prompt, stream, i):
+def eager_gap(params, cfg, prompt, stream, i, max_len=ENGINE_MAX_LEN):
     """The engine=False path's top-2 gap where it chose stream[i]: the
     prompt through `prefill`, then stream[:i] through `decode_step`."""
     from ray_tpu_torch.models import decode_step, init_kv_cache, prefill
 
-    cache = init_kv_cache(cfg, 1, ENGINE_MAX_LEN)
+    cache = init_kv_cache(cfg, 1, max_len)
     logits, cache = prefill(params, torch.tensor([prompt], device="cuda"),
                             cfg, cache)
     for tok in stream[:i]:
@@ -556,14 +700,14 @@ def eager_gap(params, cfg, prompt, stream, i):
     return top2_gap(logits[0])
 
 
-def replay_gap(params, cfg, prompt, stream, i):
+def replay_gap(params, cfg, prompt, stream, i, max_len=ENGINE_MAX_LEN):
     """The top-2 gap where a replay of prompt + stream[:i] through the
     engine's chunk programs (`resume_prefill`) chooses stream[i]."""
     from ray_tpu_torch.models import init_kv_cache, resume_prefill
 
     logits, _ = resume_prefill(
         params, torch.tensor([prompt + stream[:i]], device="cuda"), cfg,
-        init_kv_cache(cfg, 1, ENGINE_MAX_LEN), chunk=ENGINE_CHUNK)
+        init_kv_cache(cfg, 1, max_len), chunk=ENGINE_CHUNK)
     return top2_gap(logits[0])
 
 
@@ -675,58 +819,131 @@ def quiet(core):
              ["occupied_slots"] == 0, "an idle engine")
 
 
+class GraphState:
+    """The engine's decode step captured as a CUDA graph over a slot cache
+    of random K/V with the slots at ``pos`` (all active), and the same
+    step run eagerly from the same state."""
+
+    def __init__(self, cfg, params, max_len, pos):
+        from ray_tpu_torch.models import init_slot_cache
+        from ray_tpu_torch.serve.step_graph import FusedDecodeStep
+
+        self.cfg, self.params = cfg, params
+        slots = len(pos)
+        self.cache = init_slot_cache(cfg, slots, max_len)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for name in ("k", "v"):
+            self.cache[name].copy_(torch.randn(
+                self.cache[name].shape, generator=gen, device="cuda",
+                dtype=cfg.dtype))
+        self.cache["pos"].copy_(torch.tensor(pos))
+        self.saved = {name: t.clone() for name, t in self.cache.items()}
+        self.tokens = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                        slots)
+        self.active = np.ones(slots, bool)
+        self.step = FusedDecodeStep(params, self.cache, cfg)
+        t0 = time.perf_counter()
+        self.step.capture()
+        torch.cuda.synchronize()
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def restore(self):
+        for name, t in self.saved.items():
+            self.cache[name].copy_(t)
+
+    def compare(self):
+        """One replay against one eager step from the saved state → (tokens
+        equal, pos equal, the graph's pos, max |Δlogits|, that over
+        max |logits|)."""
+        from ray_tpu_torch.models import decode_step_slots
+
+        self.restore()
+        graph_toks = self.step.run(self.tokens, self.active)
+        graph_logits = self.step.logits.clone()
+        graph_pos = self.cache["pos"].tolist()
+        self.restore()
+        tok = torch.tensor(self.tokens, device="cuda")
+        act = torch.tensor(self.active, device="cuda")
+        logits, new = decode_step_slots(self.params, tok, self.cache, act,
+                                        self.cfg)
+        eager_toks = torch.where(act, logits.argmax(-1), tok).tolist()
+        diff = float((graph_logits - logits).abs().max())
+        return (graph_toks.tolist() == eager_toks,
+                graph_pos == new["pos"].tolist(), graph_pos, diff,
+                diff / float(logits.abs().max()))
+
+
+def ttft_ms(core, prompt):
+    """Host time of one start, which returns once the prompt is
+    prefilled; the session is ended after it."""
+    t0 = time.perf_counter()
+    r = core.handle({"op": "start", "prompt": prompt})
+    ms = (time.perf_counter() - t0) * 1e3
+    core.handle({"op": "end", "sid": r["sid"]})
+    return ms
+
+
+class Streams:
+    """``n`` client threads, each draining one stream of ``prompt`` until
+    `stop`; built once every stream holds a slot."""
+
+    def __init__(self, core, prompt, n):
+        self.halt = threading.Event()
+
+        def streaming(i):
+            r = core.handle({"op": "start", "prompt": prompt})
+            got_n = 1
+            while not self.halt.is_set():
+                got = core.handle({"op": "next_chunk", "sid": r["sid"],
+                                   "max_tokens": 16})
+                if "error" in got or got["done"]:
+                    raise AssertionError(f"stream {i} ended early: {got}")
+                got_n += len(got["tokens"])
+            core.handle({"op": "end", "sid": r["sid"]})
+            return got_n
+
+        self.clients = Clients(streaming, n)
+        wait_for(lambda: core.handle({"op": "stats"})["engine"]
+                 ["occupied_slots"] == n, "every stream in a slot")
+
+    def stop(self):
+        self.halt.set()
+        self.clients.join()
+
+
+def tokens_per_s(core):
+    """(tokens/s, ms per engine step) over a THROUGHPUT_WINDOW_S window of
+    the engine's counters."""
+    a = core.handle({"op": "stats"})["engine"]
+    t0 = time.perf_counter()
+    time.sleep(THROUGHPUT_WINDOW_S)
+    b = core.handle({"op": "stats"})["engine"]
+    dt = time.perf_counter() - t0
+    return ((b["tokens"] - a["tokens"]) / dt,
+            dt * 1e3 / max(1, b["steps"] - a["steps"]))
+
+
 def engine_graph_checks(card, cfg, params, out):
     """Graph against eager from one state, step times, device busy shares,
     chunk and speculative iteration times."""
-    from ray_tpu_torch.models import (decode_step_slots, draft_propose_slots,
-                                      init_kv_cache, init_slot_cache,
+    from ray_tpu_torch.models import (draft_propose_slots, init_kv_cache,
                                       prefill_chunk, verify_step_slots)
-    from ray_tpu_torch.serve.step_graph import FusedDecodeStep
 
     slots, max_len = ENGINE_SLOTS, ENGINE_MAX_LEN
-    cache = init_slot_cache(cfg, slots, max_len)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    for name in ("k", "v"):
-        cache[name].copy_(torch.randn(cache[name].shape, generator=gen,
-                                      device="cuda", dtype=cfg.dtype))
-    cache["pos"].copy_(torch.tensor([5, 100, 517, 1000, 1499, 1800, 2046,
-                                     max_len - 1]))
-    saved = {name: t.clone() for name, t in cache.items()}
-    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, slots)
-    active = np.ones(slots, bool)
-    step = FusedDecodeStep(params, cache, cfg)
-    t0 = time.perf_counter()
-    step.capture()
-    torch.cuda.synchronize()
-    capture_ms = (time.perf_counter() - t0) * 1e3
-
-    def restore():
-        for name, t in saved.items():
-            cache[name].copy_(t)
-
-    restore()
-    graph_toks = step.run(tokens, active)
-    graph_logits = step.logits.clone()
-    graph_pos = cache["pos"].tolist()
-    restore()
-    tok = torch.tensor(tokens, device="cuda")
-    act = torch.tensor(active, device="cuda")
-    logits, new = decode_step_slots(params, tok, cache, act, cfg)
-    eager_toks = torch.where(act, logits.argmax(-1), tok).tolist()
-    diff = float((graph_logits - logits).abs().max())
-    rel = diff / float(logits.abs().max())
+    state = GraphState(cfg, params, max_len, [5, 100, 517, 1000, 1499, 1800,
+                                              2046, max_len - 1])
+    step, cache, saved = state.step, state.cache, state.saved
+    tokens, active, restore = state.tokens, state.active, state.restore
+    same_toks, same_pos, graph_pos, diff, rel = state.compare()
     log(f"  graph against eager from one state (8 slots active, pos "
-        f"{saved['pos'].tolist()}): tokens equal "
-        f"{graph_toks.tolist() == eager_toks}, pos equal "
-        f"{graph_pos == new['pos'].tolist()} ({graph_pos}), logits max|diff| "
+        f"{saved['pos'].tolist()}): tokens equal {same_toks}, pos equal "
+        f"{same_pos} ({graph_pos}), logits max|diff| "
         f"{diff:.3e}, {rel:.3e} of max|logits| (must be <= 1e-2); capture "
-        f"(2 warm-up "
-        f"steps + capture) {capture_ms:.1f} ms")
-    if not (graph_toks.tolist() == eager_toks
-            and graph_pos == new["pos"].tolist() and rel <= 1e-2):
+        f"(2 warm-up steps + capture) {state.capture_ms:.1f} ms")
+    if not (same_toks and same_pos and rel <= 1e-2):
         raise AssertionError("the graph replay and the eager step disagree")
     out["graph_vs_eager_rel"] = rel
-    out["capture_ms"] = capture_ms
+    out["capture_ms"] = state.capture_ms
 
     # step times, eager against graph: device time from CUDA events over
     # back-to-back steps, host time of one step with its token read
@@ -824,7 +1041,7 @@ def engine_graph_checks(card, cfg, params, out):
         f"slots): {spec_ms:.3f} ms wall; device busy "
         + (f"{busy:.3f} ms, host share {100 * (1 - busy / spec_ms):.1f}%"
            if busy else "not measured") + f" [{card}]")
-    del step, cache, saved, dcache
+    del step, cache, saved, dcache, state
 
 
 def phase_engine(card, ops):
@@ -969,56 +1186,25 @@ def phase_engine(card, ops):
         functools.partial(replay_gap, params, cfg, prompt, stream), TIE_BF16)
 
     # ---- aggregate tokens/s at 8 slots, then TTFT idle and under load
-    stop = threading.Event()
-
-    def streaming(i):
-        """A client draining its stream until told to stop."""
-        r = core.handle({"op": "start", "prompt": prompts[0]})
-        n = 1
-        while not stop.is_set():
-            got = core.handle({"op": "next_chunk", "sid": r["sid"],
-                               "max_tokens": 16})
-            if "error" in got or got["done"]:
-                raise AssertionError(f"stream {i} ended early: {got}")
-            n += len(got["tokens"])
-        core.handle({"op": "end", "sid": r["sid"]})
-        return n
-
     for streams_n in (ENGINE_SLOTS, ENGINE_SLOTS - 1):
         quiet(core)
         if streams_n == ENGINE_SLOTS - 1:
-            t0 = time.perf_counter()
-            r = core.handle({"op": "start", "prompt": prompts[2]})
-            out["ttft_idle_ms"] = (time.perf_counter() - t0) * 1e3
-            core.handle({"op": "end", "sid": r["sid"]})
+            out["ttft_idle_ms"] = ttft_ms(core, prompts[2])
             quiet(core)
-        stop.clear()
-        clients = Clients(streaming, streams_n)
-        wait_for(lambda: core.handle({"op": "stats"})["engine"]
-                 ["occupied_slots"] == streams_n, "every stream in a slot")
+        streams = Streams(core, prompts[0], streams_n)
         if streams_n == ENGINE_SLOTS:
-            a = core.handle({"op": "stats"})["engine"]
-            t0 = time.perf_counter()
-            time.sleep(THROUGHPUT_WINDOW_S)
-            b = core.handle({"op": "stats"})["engine"]
-            dt = time.perf_counter() - t0
-            out["tokens_per_s_8"] = (b["tokens"] - a["tokens"]) / dt
-            out["ms_per_step_8"] = dt * 1e3 / max(1, b["steps"] - a["steps"])
+            out["tokens_per_s_8"], out["ms_per_step_8"] = tokens_per_s(core)
             log(f"  8 streams decoding: {out['tokens_per_s_8']:.1f} tokens/s"
                 f" aggregate, {out['ms_per_step_8']:.3f} ms per engine step "
                 f"({THROUGHPUT_WINDOW_S:g} s window) [{card}]")
         else:
-            t0 = time.perf_counter()
-            r = core.handle({"op": "start", "prompt": prompts[2]})
-            out["ttft_load_ms"] = (time.perf_counter() - t0) * 1e3
-            core.handle({"op": "end", "sid": r["sid"]})
+            out["ttft_load_ms"] = ttft_ms(core, prompts[2])
             log(f"  TTFT of a {len(prompts[2])}-token prompt: idle "
                 f"{out['ttft_idle_ms']:.2f} ms, while 7 streams decode "
                 f"{out['ttft_load_ms']:.2f} ms "
                 f"({prefill_chunks(len(prompts[2]))} chunk programs) "
                 f"[{card}]")
-        stop.set()
-        clients.join()
+        streams.stop()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     quiet(core)
     st = core.handle({"op": "stats"})["engine"]
@@ -1042,6 +1228,84 @@ def phase_engine(card, ops):
     return launches, out
 
 
+def run_steps(card, step, params, batch, kernels, expected, why):
+    """TRAIN_STEPS steps of ``step`` on one batch, with the launch counters
+    set to 0 just before and read just after: the launches a step must be
+    ``expected`` ({kernel: n}; ``why`` says whence) and the loss finite and
+    falling.  → (median wall ms of steps 2.., launches, peak GiB)."""
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(params, batch)
+        losses.append(float(metrics["loss"]))   # syncs
+        walls.append((time.perf_counter() - t0) * 1e3)
+        log(f"  step {len(losses)}: "
+            + " ".join(f"{k} {float(v):.6f}" for k, v in metrics.items())
+            + f" wall {walls[-1]:.2f} ms [{card}]")
+    launches = {k.__name__: k.launches for k in kernels}
+    per_step = {name: n / TRAIN_STEPS for name, n in launches.items()}
+    log(f"  launches over {TRAIN_STEPS} steps: {launches} ({per_step} a "
+        f"step; expected {why})")
+    if per_step != expected:
+        raise AssertionError(f"unexpected launches a step: {per_step}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"loss did not fall: {losses}")
+    step_ms = float(np.median(walls[1:]))
+    log(f"  step time {step_ms:.2f} ms (median of steps 2-{TRAIN_STEPS}; "
+        f"first {walls[0]:.2f} ms)")
+    return step_ms, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def flash_against_reference(loss_of, cfg, wanted):
+    """One step's loss and the gradients of ``wanted`` ({name: parameter})
+    with flash attention against the same with reference attention, on the
+    same weights: the loss within 1e-2 relative and every gradient's cosine
+    >= 0.99.  ``loss_of(cfg)`` → the loss.  → (relative loss error,
+    {name: cosine})."""
+    results = {}
+    for impl in ("flash", "reference"):
+        for p in wanted.values():
+            p.requires_grad_(True)
+        loss = loss_of(dataclasses.replace(cfg, attention_impl=impl))
+        results[impl] = (float(loss.detach()),
+                         torch.autograd.grad(loss, list(wanted.values())))
+        for p in wanted.values():
+            p.requires_grad_(False)
+    (fl, fg), (rl, rg) = results["flash"], results["reference"]
+    rel = abs(fl - rl) / abs(rl)
+    cosines = {n: float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+        for n, a, b in zip(wanted, fg, rg)}
+    log(f"  flash vs reference attention: loss {fl:.6f} / {rl:.6f} "
+        f"(relative {rel:.3e}, must be <= 1e-2); gradient cosines "
+        + ", ".join(f"{n} {c:.6f}" for n, c in cosines.items())
+        + " (each must be >= 0.99)")
+    if not (rel <= 1e-2 and min(cosines.values()) >= 0.99):
+        raise AssertionError("flash and reference gradients disagree")
+    return rel, cosines
+
+
+def profile_step(card, what, fn, wall_ms, n=12):
+    """Device time by kernel of one call of ``fn`` against its unprofiled
+    wall time; → {kernel: ms} (empty where the profiler saw no device)."""
+    kernels_ms = device_kernel_ms(fn)
+    if not kernels_ms:
+        log(f"  {what}: device time not measured (the profiler recorded no "
+            f"device activity)")
+        return kernels_ms
+    busy = sum(kernels_ms.values())
+    log(f"  {what}: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
+        f"({100 * busy / wall_ms:.1f}%), {len(kernels_ms)} kernel names "
+        f"[{card}]")
+    for name, ms in top_kernels(kernels_ms, n):
+        log(f"      {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
+    return kernels_ms
+
+
 def phase_train(card, ops):
     from ray_tpu_torch.models import (TransformerConfig, flops_per_token,
                                       init_params, lm_loss, make_train_step,
@@ -1060,37 +1324,15 @@ def phase_train(card, ops):
     opt = torch.optim.AdamW(param_leaves(params), lr=3e-4, weight_decay=0.1)
     step = make_train_step(cfg, opt)
     kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
-    for kernel in kernels:
-        kernel.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    losses, walls = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = step(params, batch)
-        losses.append(float(metrics["loss"]))   # syncs
-        walls.append((time.perf_counter() - t0) * 1e3)
-        log(f"  step {len(losses)}: loss {losses[-1]:.6f} grad_norm "
-            f"{float(metrics['grad_norm']):.6f} wall {walls[-1]:.2f} ms "
-            f"[{card}]")
-    launches = {k.__name__: k.launches for k in kernels}
-    per_step = {name: n / TRAIN_STEPS for name, n in launches.items()}
-    log(f"  launches over {TRAIN_STEPS} steps: {launches} ({per_step} a "
-        f"step; expected fwd 32 = 16 + 16 recomputed under remat 'dots', "
-        f"dq 16, dkv 16)")
-    if per_step != {"flash_fwd": 32, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}:
-        raise AssertionError(f"unexpected launches a step: {per_step}")
-    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"loss did not fall: {losses}")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    step_ms = float(np.median(walls[1:]))
+    step_ms, launches, peak_gib = run_steps(
+        card, step, params, batch, kernels,
+        {"flash_fwd": 32, "flash_bwd_dq": 16, "flash_bwd_dkv": 16},
+        "fwd 32 = 16 + 16 recomputed under remat 'dots', dq 16, dkv 16")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     mfu = (flops_per_token(cfg, TRAIN_SEQ) * tokens / (step_ms / 1e3)
            / PEAK_FLOPS[torch.bfloat16])
-    log(f"  step time {step_ms:.2f} ms (median of steps 2-{TRAIN_STEPS}; "
-        f"first {walls[0]:.2f} ms), {tokens / step_ms * 1e3:.0f} tokens/s, "
-        f"MFU {mfu:.4f} of 989 TFLOP/s, peak memory {peak_gib:.2f} GiB "
-        f"[{card}]")
+    log(f"  {tokens / step_ms * 1e3:.0f} tokens/s, MFU {mfu:.4f} of 989 "
+        f"TFLOP/s, peak memory {peak_gib:.2f} GiB [{card}]")
 
     accum = make_train_step(cfg, opt, accum_steps=2)(params, batch)
     accum_loss = float(accum["loss"])
@@ -1101,44 +1343,355 @@ def phase_train(card, ops):
 
     # the full-width check: one step's loss and gradients, flash against
     # reference attention, on the same weights
-    names = ("wq", "wk", "wv", "wo", "lm_head")
-    wanted = [params["layers"][n] for n in names[:4]] + [params["lm_head"]]
-    results = {}
-    for impl in ("flash", "reference"):
-        for p in wanted:
-            p.requires_grad_(True)
-        loss = lm_loss(params, batch,
-                       dataclasses.replace(cfg, attention_impl=impl))
-        results[impl] = (float(loss.detach()),
-                         torch.autograd.grad(loss, wanted))
-        for p in wanted:
-            p.requires_grad_(False)
-    (fl, fg), (rl, rg) = results["flash"], results["reference"]
-    rel = abs(fl - rl) / abs(rl)
-    cosines = {n: float(torch.nn.functional.cosine_similarity(
-        a.float().flatten(), b.float().flatten(), dim=0))
-        for n, a, b in zip(names, fg, rg)}
-    log(f"  flash vs reference attention: loss {fl:.6f} / {rl:.6f} "
-        f"(relative {rel:.3e}, must be <= 1e-2); gradient cosines "
-        + ", ".join(f"{n} {c:.6f}" for n, c in cosines.items())
-        + " (each must be >= 0.99)")
-    if not (rel <= 1e-2 and min(cosines.values()) >= 0.99):
-        raise AssertionError("flash and reference gradients disagree")
-    del fg, rg, results
-
+    wanted = {n: params["layers"][n] for n in ("wq", "wk", "wv", "wo")}
+    wanted["lm_head"] = params["lm_head"]
+    flash_against_reference(lambda c: lm_loss(params, batch, c), cfg, wanted)
     # where the time goes: device time by kernel for one step
-    kernels_ms = device_kernel_ms(lambda: step(params, batch))
-    if not kernels_ms:
-        log("  train step: device time not measured (the profiler "
-            "recorded no device activity)")
-    else:
-        busy = sum(kernels_ms.values())
-        log(f"  train step: device busy {busy:.2f} ms of {step_ms:.2f} ms "
-            f"wall ({100 * busy / step_ms:.1f}%), {len(kernels_ms)} kernel "
-            f"names [{card}]")
-        for name, ms in top_kernels(kernels_ms, 12):
-            log(f"      {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
+    profile_step(card, "train step", lambda: step(params, batch), step_ms)
     return launches
+
+
+def moe_layer_breakdown(card, cfg, params):
+    """Where one MoE layer's time goes at the train shape (4 x 1024 tokens,
+    layer 0's weights, activations N(0, 1) in bf16): routing, the dispatch
+    einsum, the experts over their whole capacity, the combine einsum, and
+    the layer forward and forward + backward; and the capacity's fill."""
+    from ray_tpu_torch.ops import expert_capacity, moe_ffn, route
+
+    b, s, d, f = TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, cfg.ff_dim
+    e, k, dt = cfg.n_experts, cfg.expert_top_k, cfg.dtype
+    lp = {name: w[0] for name, w in params["layers"].items()}
+    y = randn(7, (b, s, d), dt)
+    cap = expert_capacity(s, e, k, cfg.capacity_factor)
+    dispatch, combine, _ = route(y, lp["router"], k, cap)
+    w_in, w_out = lp["w_in"].to(dt), lp["w_out"].to(dt)
+    xe = torch.einsum("bsec,bsd->ebcd", dispatch, y)
+    oe = torch.einsum("ebcf,efd->ebcd", torch.nn.functional.gelu(
+        torch.einsum("ebcd,edf->ebcf", xe, w_in), approximate="tanh"), w_out)
+    comb = combine.to(dt)
+
+    def layer():
+        return moe_ffn(y, lp["router"], lp["w_in"], lp["w_out"], top_k=k,
+                       capacity_factor=cfg.capacity_factor)
+
+    leaves = [y.detach().requires_grad_(True)] + [
+        lp[n].detach().requires_grad_(True) for n in ("router", "w_in",
+                                                      "w_out")]
+
+    def layer_fwd_bwd():
+        out, aux = moe_ffn(*leaves, top_k=k,
+                           capacity_factor=cfg.capacity_factor)
+        return torch.autograd.grad(out.float().sum() + aux, leaves)
+
+    times = {
+        "route": cuda_ms(lambda: route(y, lp["router"], k, cap), iters=10),
+        "dispatch": cuda_ms(lambda: torch.einsum("bsec,bsd->ebcd", dispatch,
+                                                 y), iters=10),
+        "experts": cuda_ms(lambda: torch.einsum(
+            "ebcf,efd->ebcd", torch.nn.functional.gelu(torch.einsum(
+                "ebcd,edf->ebcf", xe, w_in), approximate="tanh"), w_out),
+            iters=10),
+        "combine": cuda_ms(lambda: torch.einsum("ebcd,bsec->bsd", oe, comb),
+                           iters=10),
+        "layer_fwd": cuda_ms(layer, iters=10),
+        "layer_fwd_bwd": cuda_ms(layer_fwd_bwd, iters=5),
+    }
+    held = float(dispatch.float().sum())
+    fill = held / (e * b * cap)
+    dropped = 1 - held / (b * s * k)
+    # products: experts over E·b·C rows, of which b·s·k would be the active
+    # tokens' own; dispatch and combine each b·s·E·C·d multiply-adds
+    flops = {"experts": 4 * e * b * cap * d * f,
+             "active": 4 * b * s * k * d * f,
+             "dispatch_combine": 2 * 2 * b * s * e * cap * d}
+    log(f"  one MoE layer at {b} x {s} (capacity {cap} a row and expert): "
+        + ", ".join(f"{n} {ms:.4f} ms" for n, ms in times.items())
+        + f"; {100 * fill:.1f}% of the experts' rows hold a token, "
+        f"{100 * dropped:.2f}% of the token choices dropped; expert "
+        f"products {flops['experts'] / 1e9:.1f} GFLOP for "
+        f"{flops['active'] / 1e9:.1f} active, dispatch + combine "
+        f"{flops['dispatch_combine'] / 1e9:.1f} GFLOP [{card}]")
+    return {"ms": times, "capacity": cap, "fill": fill, "dropped": dropped,
+            "gflop": {n: v / 1e9 for n, v in flops.items()}}
+
+
+def moe_serve(card, kernels, out):
+    """The MoE model served: fp32 streams through the engine, speculating
+    and (with no drops) the engine=False core; bf16 graph against eager,
+    throughput and TTFT.  → launches by path."""
+    from ray_tpu_torch.models import (TransformerConfig, count_params,
+                                      init_params)
+    from ray_tpu_torch.serve import DecodeEngineConfig, DecodeSessionCore
+
+    ecfg = DecodeEngineConfig(max_slots=ENGINE_SLOTS,
+                              prefill_chunk_tokens=ENGINE_CHUNK)
+    rng = np.random.default_rng(0)
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    cfg32 = TransformerConfig.gpt2("small", dtype=torch.float32,
+                                   **MOE_CONFIG)
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    prompts = [rng.integers(0, cfg32.vocab_size, n).tolist()
+               for n in MOE_STREAM_PROMPTS]
+    # the capacity factor at which no token drops anywhere (C >= s)
+    nodrop = dataclasses.replace(
+        cfg32, capacity_factor=cfg32.n_experts / cfg32.expert_top_k)
+    log(f"  fp32 streams: prompts of {MOE_STREAM_PROMPTS} tokens, "
+        f"{STREAM_TOKENS} tokens each")
+    streams, launches = {}, {}
+    for what, cfg, engine in (
+            ("engine", cfg32, ecfg),
+            ("speculating", cfg32, dataclasses.replace(
+                ecfg, spec_draft="shared", spec_k=4)),
+            ("engine, no drops", nodrop, ecfg),
+            ("engine=False, no drops", nodrop, False)):
+        core = DecodeSessionCore(cfg, max_len=MOE_MAX_LEN, params=params32,
+                                 engine=engine)
+        if engine is False:   # the whole-prompt path: the flash kernels
+            for kernel in kernels:
+                kernel.launches = 0
+        t0 = time.perf_counter()
+        streams[what] = (eager_streams if engine is False else
+                         serve_streams)(core, prompts, STREAM_TOKENS)
+        wall = time.perf_counter() - t0
+        if engine is False:
+            launches["moe_serve"] = {k.__name__: k.launches for k in kernels}
+            log(f"  {what}: {wall:.2f} s, kernel launches "
+                f"{launches['moe_serve']} (expected flash_fwd "
+                f"{cfg.n_layers} a start)")
+            if launches["moe_serve"] != {
+                    "flash_fwd": cfg.n_layers * len(prompts),
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+                raise AssertionError("unexpected launches on engine=False")
+            continue
+        quiet(core)
+        st = core.handle({"op": "stats"})["engine"]
+        core.engine.shutdown()
+        core.engine._thread.join(timeout=30)
+        log(f"  {what}: {st['steps']} engine iterations, "
+            f"{st['graph_replays']} graph replays, spec {st['spec']}, "
+            f"{wall:.2f} s")
+        if what == "speculating":
+            out["fp32_spec_acceptance"] = st["spec"]["acceptance"]
+    for i, prompt in enumerate(prompts):
+        for what, got, want, cfg, gap in (
+                ("speculating against the engine", "speculating", "engine",
+                 cfg32, replay_gap),
+                ("engine against engine=False, no drops", "engine, no drops",
+                 "engine=False, no drops", nodrop, eager_gap)):
+            # the gap is the reference path's along the reference stream
+            want = streams[want][i]
+            same_or_tie(f"prompt {len(prompt)}: {what}", streams[got][i],
+                        want, functools.partial(gap, params32, cfg, prompt,
+                                                want, max_len=MOE_MAX_LEN),
+                        TIE_FP32)
+    del core, params32
+    gc.collect()            # the engines' threads hold them in cycles
+    torch.cuda.empty_cache()
+
+    # ---- bf16: graph against eager, bitwise; throughput and TTFT
+    cfg = TransformerConfig.gpt2("small", param_dtype=torch.bfloat16,
+                                 **MOE_CONFIG)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    state = GraphState(cfg, params, MOE_MAX_LEN,
+                       [5, 100, 300, 517, 700, 900, MOE_MAX_LEN - 2,
+                        MOE_MAX_LEN - 1])
+    same_toks, same_pos, graph_pos, diff, _ = state.compare()
+    state.restore()
+    state.step.load(state.tokens, state.active)
+    out["graph_ms"] = cuda_ms(state.step.graph.replay, iters=100)
+    out["eager_ms"] = cuda_ms(state.step._step, iters=10)
+    log(f"  graph against eager from one state (8 slots active, pos "
+        f"{state.saved['pos'].tolist()}): tokens equal {same_toks}, pos "
+        f"equal {same_pos} ({graph_pos}), logits max|diff| {diff:.3e} (must "
+        f"be 0); decode step, 8 slots: graph {out['graph_ms']:.4f} ms, eager "
+        f"{out['eager_ms']:.4f} ms device [{card}]")
+    if not (same_toks and same_pos and diff == 0.0):
+        raise AssertionError("the graph replay and the eager step disagree")
+    profile_step(card, "MoE graph replay, 8 slots",
+                 lambda: state.step.run(state.tokens, state.active),
+                 out["graph_ms"], n=8)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    core = DecodeSessionCore(cfg, max_len=MOE_MAX_LEN, params=params,
+                             engine=ecfg)
+    ttft_prompt = rng.integers(0, cfg.vocab_size, MOE_TTFT_PROMPT).tolist()
+    ttft_ms(core, ttft_prompt[:17])     # the first use of each program
+    quiet(core)
+    out["ttft_idle_ms"] = ttft_ms(core, ttft_prompt)
+    quiet(core)
+    streams = Streams(core, ttft_prompt[:17], ENGINE_SLOTS)
+    out["tokens_per_s_8"], out["ms_per_step_8"] = tokens_per_s(core)
+    streams.stop()
+    quiet(core)
+    st = core.handle({"op": "stats"})["engine"]
+    core.engine.shutdown()
+    core.engine._thread.join(timeout=30)
+    launches["moe_engine"] = {k.__name__: k.launches for k in kernels}
+    out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  bf16 engine: TTFT of a {MOE_TTFT_PROMPT}-token prompt, idle, "
+        f"{out['ttft_idle_ms']:.2f} ms ({prefill_chunks(MOE_TTFT_PROMPT)} "
+        f"chunk programs); 8 streams decoding: {out['tokens_per_s_8']:.1f} "
+        f"tokens/s, {out['ms_per_step_8']:.3f} ms per engine step; "
+        f"{st['steps']} steps, {st['graph_replays']} graph replays; kernel "
+        f"launches {launches['moe_engine']}; peak memory "
+        f"{out['serve_peak_gib']:.2f} GiB, {held_gib:.2f} GiB of it held "
+        f"before the engine started (the bf16 weights "
+        f"{count_params(cfg) * 2 / 2**30:.2f} GiB) [{card}]")
+    if any(launches["moe_engine"].values()):
+        raise AssertionError("the engine path launched a flash kernel")
+    if st["graph_replays"] != st["steps"]:
+        raise AssertionError("a step ran outside the graph")
+    del core, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe(card, ops):
+    from ray_tpu_torch.models import (TransformerConfig, count_params,
+                                      flops_per_token, forward_with_aux,
+                                      init_params, lm_loss, make_train_step,
+                                      param_leaves)
+
+    log("== moe: gpt2-small with 8 experts, top 2 (capacity factor 2.0, "
+        "router aux weight 0.01), fp32 weights, bf16 compute")
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    cfg = TransformerConfig.gpt2("small", remat=False, norm_remat=True,
+                                 loss_chunk=128, **MOE_CONFIG)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")}
+    # torch.optim.AdamW keeps its moments in the parameters' dtype, fp32
+    opt = torch.optim.AdamW(param_leaves(params), lr=3e-4, weight_decay=0.1)
+    step = make_train_step(cfg, opt)
+    step_ms, train_launches, peak_gib = run_steps(
+        card, step, params, batch, kernels,
+        {name: cfg.n_layers for name in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv")},
+        f"{cfg.n_layers} of each: one a layer, remat off")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = flops_per_token(cfg, TRAIN_SEQ)
+    out = {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "mfu": flops * tokens / (step_ms / 1e3) / PEAK_FLOPS[
+               torch.bfloat16], "train_peak_gib": peak_gib,
+           "params": count_params(cfg)}
+    log(f"  {count_params(cfg) / 1e6:.1f} M parameters; "
+        f"{out['tokens_per_s']:.0f} tokens/s, MFU {out['mfu']:.4f} of 989 "
+        f"TFLOP/s (active "
+        f"FLOPs: {flops / 1e9:.3f} GFLOP a token), peak memory "
+        f"{peak_gib:.2f} GiB (fp32 weights, gradients and AdamW moments: "
+        f"torch.optim.AdamW has no bf16 first moment) "
+        f"[{card}]")
+    with torch.no_grad():
+        out["aux"] = float(forward_with_aux(params, batch["tokens"], cfg)[1])
+    log(f"  router aux loss (mean over layers) {out['aux']:.6f}")
+    if not (np.isfinite(out["aux"]) and out["aux"] > 0):
+        raise AssertionError("the router aux loss is not finite and > 0")
+    wanted = {n: params["layers"][n] for n in ("router", "w_in", "w_out",
+                                                "wq")}
+    out["loss_rel"], out["cosines"] = flash_against_reference(
+        lambda c: lm_loss(params, batch, c), cfg, wanted)
+    profile_step(card, "MoE train step", lambda: step(params, batch),
+                 step_ms)
+    out["layer"] = moe_layer_breakdown(card, cfg, params)
+    # nothing of the training run may stay alive into the serving runs'
+    # peak memory
+    del params, opt, step, wanted, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"moe_train": train_launches}
+    launches.update(moe_serve(card, kernels, out))
+    return launches, out
+
+
+def phase_vit(card, ops):
+    from ray_tpu_torch.models import (ViTConfig, flops_per_token,
+                                      init_vit_params, make_vit_train_step,
+                                      param_leaves, vit_forward, vit_loss)
+
+    log("== vit: ViT-B/16 at 224 x 224, fp32 weights, bf16 compute")
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    cfg = ViTConfig.base()
+    params = init_vit_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shape = (cfg.image_size, cfg.image_size, cfg.channels)
+    batch = {"image": torch.randn((VIT_TRAIN_BATCH, *shape), generator=gen,
+                                  device="cuda"),
+             "label": torch.randint(0, cfg.num_classes, (VIT_TRAIN_BATCH,),
+                                    generator=gen, device="cuda")}
+    opt = torch.optim.AdamW(param_leaves(params), lr=3e-4, weight_decay=0.1)
+    step = make_vit_train_step(cfg, opt)
+    step_ms, train_launches, peak_gib = run_steps(
+        card, step, params, batch, kernels,
+        {name: cfg.n_layers for name in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv")},
+        f"{cfg.n_layers} of each: one a layer, remat off")
+    # FLOPs an image as the JAX package's probe counts them
+    # (tpu_probe20.py:39-40): the encoder's training FLOPs a token x tokens
+    flops = flops_per_token(cfg.block_cfg(), cfg.seq_len) * cfg.seq_len
+    out = {"step_ms": step_ms,
+           "images_per_s": VIT_TRAIN_BATCH / step_ms * 1e3,
+           "mfu": flops * VIT_TRAIN_BATCH / (step_ms / 1e3) / PEAK_FLOPS[
+               torch.bfloat16], "peak_gib": peak_gib}
+    log(f"  train, batch {VIT_TRAIN_BATCH}: {out['images_per_s']:.1f} "
+        f"images/s, MFU {out['mfu']:.4f} of 989 TFLOP/s ({flops / 1e9:.1f} "
+        f"GFLOP an image), peak memory {peak_gib:.2f} GiB [{card}]")
+    wanted = {"patch.w": params["patch"]["w"], "wq": params["layers"]["wq"],
+              "w_in": params["layers"]["w_in"], "head.w": params["head"]["w"]}
+    out["loss_rel"], out["cosines"] = flash_against_reference(
+        lambda c: vit_loss(params, batch, c)[0], cfg, wanted)
+    profile_step(card, "ViT train step", lambda: step(params, batch), step_ms,
+                 n=8)
+    del opt, step, batch
+
+    # batch-predict: the forward alone at 256 images
+    images = torch.randn((VIT_PREDICT_BATCH, *shape), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        for kernel in kernels:
+            kernel.launches = 0
+        logits = vit_forward(params, images, cfg)
+        torch.cuda.synchronize()
+        predict_launches = {k.__name__: k.launches for k in kernels}
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vit_forward(params, images, cfg)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ref = vit_forward(params, images, dataclasses.replace(
+            cfg, attention_impl="reference"))
+    cos = torch.nn.functional.cosine_similarity(logits, ref, dim=-1)
+    predict_ms = float(np.median(walls))
+    out["predict_ms"] = predict_ms
+    out["predict_images_per_s"] = VIT_PREDICT_BATCH / predict_ms * 1e3
+    out["predict_cosine_min"] = float(cos.min())
+    log(f"  batch-predict, batch {VIT_PREDICT_BATCH}: {predict_ms:.2f} ms "
+        f"(median of 5), {out['predict_images_per_s']:.1f} images/s; kernel "
+        f"launches {predict_launches} (expected flash_fwd {cfg.n_layers}); "
+        f"logits against reference attention: cosine per image min "
+        f"{out['predict_cosine_min']:.6f} (must be >= 0.99), max|diff| "
+        f"{float((logits - ref).abs().max()):.3e} [{card}]")
+    if predict_launches != {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}:
+        raise AssertionError("unexpected launches in batch-predict")
+    if not (torch.isfinite(logits).all() and tuple(logits.shape) == (
+            VIT_PREDICT_BATCH, cfg.num_classes) and cos.min() >= 0.99):
+        raise AssertionError("ViT logits disagree with reference attention")
+    del params, images, logits, ref
+    torch.cuda.empty_cache()
+    return {"vit_train": train_launches, "vit_predict": predict_launches}, out
 
 
 def top_kernels(by_name, n):
@@ -1219,6 +1772,14 @@ def check_ptxas(nvcc_log):
                 log(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}")
 
 
+def phase_build(build):
+    log("== build")
+    for built in build.build_all():
+        log(f"  {built.name}: {built.path.name} in {built.seconds:.2f} s")
+        log(built.log.rstrip())
+        check_ptxas(built.log)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1234,20 +1795,28 @@ def main():
     log(f"== card: {card}")
     log(f"   torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    log("== build")
-    t0 = time.perf_counter()
-    for built in build.build_all():
-        log(f"  {built.name}: {built.path.name} in {built.seconds:.2f} s")
-        log(built.log.rstrip())
-        check_ptxas(built.log)
-    log(f"  build phase {time.perf_counter() - t0:.2f} s")
+    seconds = {}
 
-    rows = [phase_kernels(card, ops),
-            *phase_bwd_kernels(card, ops)]
-    by_path = {"serve": {"flash_fwd": phase_slice(card, ops.flash_fwd)}}
-    torch.cuda.empty_cache()
-    by_path["engine"], engine = phase_engine(card, ops)
-    by_path["train"] = phase_train(card, ops)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+        log(f"  phase {name}: {seconds[name]:.1f} s")
+        return result
+
+    timed("build", phase_build, build)
+    rows = [timed("kernels", phase_kernels, card, ops),
+            *timed("bwd_kernels", phase_bwd_kernels, card, ops)]
+    by_path = {"serve": {"flash_fwd": timed("slice", phase_slice, card,
+                                            ops.flash_fwd)}}
+    by_path["engine"], engine = timed("engine", phase_engine, card, ops)
+    by_path["train"] = timed("train", phase_train, card, ops)
+    moe_paths, moe = timed("moe", phase_moe, card, ops)
+    vit_paths, vit = timed("vit", phase_vit, card, ops)
+    by_path.update(moe_paths)
+    by_path.update(vit_paths)
+    log(f"  phase seconds: {json.dumps(seconds)}")
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()
@@ -1255,6 +1824,7 @@ def main():
         row["launches"] = sum(row["launches_by_path"].values())
     log(card)
     print(json.dumps({"engine": engine}))
+    print(json.dumps({"moe": moe, "vit": vit, "seconds": seconds}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,22 @@
-"""Carry the JAX package's transformer weights into the port.
+"""Carry the JAX package's model weights into the port.
 
 `params_from_numpy` takes the nested dict that ``ray_tpu.models.init_params``
-returns, with every leaf converted to a numpy array (``np.asarray``), and
-copies it into tensors in the same stacked layout.  It changes no value and
-no dtype.  Needs no JAX: the caller does the ``np.asarray``.
+(or ``init_vit_params``) returns, with every leaf converted to a numpy array
+(``np.asarray``), and copies it into tensors in the same stacked layout.  It
+changes no value and no dtype.  Needs no JAX: the caller does the
+``np.asarray``.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Union
 
 import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
 from .models.transformer import Params, TransformerConfig, param_shapes
+from .models.vit import ViTConfig, vit_param_shapes
 
 
 def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -28,11 +30,11 @@ def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree: Any, cfg: TransformerConfig,
+def params_from_numpy(tree: Any, cfg: Union[TransformerConfig, ViTConfig],
                       device: DeviceLike = None) -> Params:
     """JAX parameters as numpy arrays → the port's parameters on
-    ``device``.  Raises if the tree's keys or shapes are not those ``cfg``
-    defines."""
+    ``device``, for a transformer (dense or a mixture of experts) or a ViT.
+    Raises if the tree's keys or shapes are not those ``cfg`` defines."""
     device = resolve_device(device)
 
     def walk(node, shapes, path):
@@ -52,4 +54,6 @@ def params_from_numpy(tree: Any, cfg: TransformerConfig,
             out[name] = _tensor(arr, device)
         return out
 
-    return walk(tree, param_shapes(cfg), "")
+    shapes = (vit_param_shapes(cfg) if isinstance(cfg, ViTConfig)
+              else param_shapes(cfg))
+    return walk(tree, shapes, "")

@@ -1,7 +1,7 @@
 """Model zoo of the port (counterpart of ``ray_tpu.models``): the
-decoder-only transformer family, its whole-prompt generation path, the
-continuous-batching engine's slot functions, its loss and its training
-step."""
+decoder-only transformer family (dense or a mixture of experts), its
+whole-prompt generation path, the continuous-batching engine's slot
+functions, its loss and its training step; and the ViT family."""
 
 from .generate import (  # noqa: F401
     cache_gather_slot,
@@ -32,4 +32,12 @@ from .transformer import (  # noqa: F401
     param_leaves,
     param_shapes,
     remat_policy,
+)
+from .vit import (  # noqa: F401
+    ViTConfig,
+    init_vit_params,
+    make_vit_train_step,
+    vit_forward,
+    vit_loss,
+    vit_param_shapes,
 )

@@ -7,11 +7,13 @@ JAX package's stacked layout (``wq`` [L, d, h, hd], ``wo`` [L, h, hd, d],
 The layer stack is a Python loop over the leading "layers" axis, each layer
 under `torch.utils.checkpoint` as ``cfg.remat`` says.  Attention goes
 through `ray_tpu_torch.ops.multi_head_attention`, which on the card is the
-Hopper flash kernels, forward and backward.
+Hopper flash kernels, forward and backward.  With ``n_experts > 0`` every
+layer's FFN is a mixture of experts (`ray_tpu_torch.ops.moe_ffn`), and the
+loss adds the router's load-balancing term.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
-otherwise: mixture of experts and pipeline stages (the parallelism slice),
-ring attention (the parallelism slice).
+otherwise: pipeline stages and ring attention (ROADMAP queue 1 items 8-9:
+sequence parallelism; mesh, sharding and pipeline).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import multi_head_attention
+from ..ops.moe import moe_ffn
 from ..ops.norms import layernorm, rmsnorm
 from ..ops.rotary import apply_rotary, rotary_angles
 
@@ -60,22 +63,23 @@ class TransformerConfig:
     loss_chunk: int = 0               # >0 → cross entropy [b, chunk, vocab]
     #   logits at a time, each chunk recomputed in the backward
     pp_stages: int = 1
-    n_experts: int = 0
+    # -- mixture of experts (ops/moe.py) ------------------------------------
+    n_experts: int = 0                # 0 → dense FFN
+    expert_top_k: int = 2
+    capacity_factor: float = 2.0
+    router_aux_weight: float = 0.01   # Switch load-balancing loss weight
 
     def __post_init__(self):
-        if self.n_experts:
-            raise NotImplementedError(
-                "mixture of experts (n_experts > 0) is not ported yet: it "
-                "comes with the parallelism slice (ray_tpu/ops/moe.py)")
         if self.pp_stages > 1:
             raise NotImplementedError(
                 "pipeline stages (pp_stages > 1) are not ported yet: they "
-                "come with the parallelism slice "
-                "(ray_tpu/parallel/pipeline.py)")
+                "come with the parallelism slice (ROADMAP queue 1 item 9, "
+                "ray_tpu/parallel/pipeline.py)")
         if self.attention_impl == "ring":
             raise NotImplementedError(
                 "ring attention is not ported yet: it comes with the "
-                "parallelism slice (ray_tpu/ops/ring_attention.py)")
+                "parallelism slice (ROADMAP queue 1 item 8, "
+                "ray_tpu/ops/ring_attention.py)")
 
     @property
     def head_dim(self) -> int:
@@ -130,17 +134,24 @@ class TransformerConfig:
         return TransformerConfig(**defaults)
 
 
-def _per_layer_matmul_params(cfg: TransformerConfig) -> int:
+def _per_layer_matmul_params(cfg: TransformerConfig, active: bool) -> int:
+    """Matmul parameters per layer; for MoE, ``active`` counts only the
+    top-k experts a token visits (the FLOP count), ``active=False`` every
+    expert (the memory count)."""
     d, ff, hd = cfg.d_model, cfg.ff_dim, cfg.head_dim
     attn = d * cfg.n_heads * hd + 2 * d * cfg.kv_heads * hd \
         + cfg.n_heads * hd * d
-    return attn + d * ff * (3 if cfg.activation == "swiglu" else 2)
+    mlp = d * ff * (3 if cfg.activation == "swiglu" else 2)
+    if cfg.n_experts:
+        mult = cfg.expert_top_k if active else cfg.n_experts
+        mlp = mult * mlp + d * cfg.n_experts       # + router
+    return attn + mlp
 
 
 def count_params(cfg: TransformerConfig) -> int:
     d = cfg.d_model
     norms = 2 * d * (2 if cfg.norm == "layernorm" else 1)
-    per_layer = _per_layer_matmul_params(cfg) + norms
+    per_layer = _per_layer_matmul_params(cfg, active=False) + norms
     emb = cfg.vocab_size * d
     if cfg.pos_emb == "learned":
         emb += cfg.max_seq_len * d
@@ -150,8 +161,9 @@ def count_params(cfg: TransformerConfig) -> int:
 
 
 def flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
-    """Training FLOPs/token: 6*N_matmul + causal attention term."""
-    n_matmul = cfg.n_layers * _per_layer_matmul_params(cfg) \
+    """Training FLOPs/token: 6*N_active_matmul + the attention term (causal
+    or bidirectional)."""
+    n_matmul = cfg.n_layers * _per_layer_matmul_params(cfg, active=True) \
         + cfg.vocab_size * cfg.d_model
     attn_factor = 6 if cfg.causal else 12
     attn = attn_factor * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq_len
@@ -161,8 +173,9 @@ def flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
 def decode_flops_per_token(cfg: TransformerConfig,
                            context_len: int) -> float:
     """Inference forward FLOPs for ONE token at cache position
-    ``context_len``: 2*N_matmul plus the attention reads of the cache."""
-    n_matmul = cfg.n_layers * _per_layer_matmul_params(cfg) \
+    ``context_len``: 2*N_active_matmul plus the attention reads of the
+    cache."""
+    n_matmul = cfg.n_layers * _per_layer_matmul_params(cfg, active=True) \
         + cfg.vocab_size * cfg.d_model
     attn = 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * context_len
     return 2 * n_matmul + attn
@@ -202,10 +215,15 @@ def param_shapes(cfg: TransformerConfig) -> Params:
                            cfg.kv_heads, cfg.ff_dim, cfg.n_layers)
     layers = {"attn_norm": (L, d), "wq": (L, d, h, hd),
               "wk": (L, d, hk, hd), "wv": (L, d, hk, hd),
-              "wo": (L, h, hd, d), "mlp_norm": (L, d),
-              "w_in": (L, d, ff), "w_out": (L, ff, d)}
+              "wo": (L, h, hd, d), "mlp_norm": (L, d)}
+    # experts stack on an axis after the layers': w_in [L, E, d, ff]
+    experts = (cfg.n_experts,) if cfg.n_experts else ()
+    if cfg.n_experts:
+        layers["router"] = (L, d, cfg.n_experts)
+    layers["w_in"] = (L, *experts, d, ff)
+    layers["w_out"] = (L, *experts, ff, d)
     if cfg.activation == "swiglu":
-        layers["w_gate"] = (L, d, ff)
+        layers["w_gate"] = (L, *experts, d, ff)
     tree: Params = {"embed": {"tok": (cfg.vocab_size, d)}, "layers": layers,
                     "final_norm": (d,)}
     if cfg.norm == "layernorm":
@@ -229,7 +247,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     fan_in = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
               "wo": cfg.n_heads * cfg.head_dim, "w_in": cfg.d_model,
               "w_gate": cfg.d_model, "w_out": cfg.ff_dim,
-              "lm_head": cfg.d_model}
+              "router": cfg.d_model, "lm_head": cfg.d_model}
 
     def make(name, shape):
         if "norm" in name:
@@ -335,9 +353,15 @@ def _layer(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
 
 def _ffn(cfg: TransformerConfig, y: torch.Tensor, lp: Params
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Post-attention dense FFN on a normed input → (residual delta,
-    router aux loss = 0)."""
+    """Post-attention FFN on a normed input, dense or a mixture of experts;
+    ONE implementation shared by training, prefill and every decode path
+    (`models/generate.py`).  → (residual delta, router aux loss; 0 for a
+    dense FFN)."""
     dt = cfg.dtype
+    if cfg.n_experts:
+        return moe_ffn(y, lp["router"], lp["w_in"], lp["w_out"],
+                       lp.get("w_gate"), top_k=cfg.expert_top_k,
+                       capacity_factor=cfg.capacity_factor)
     aux = torch.zeros((), dtype=torch.float32, device=y.device)
     if cfg.activation == "swiglu":
         up = y @ lp["w_in"].to(dt)
@@ -380,13 +404,24 @@ def _trunk(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
     cos, sin = (rotary_angles(s, cfg.head_dim, cfg.rope_base,
                               device=x.device)
                 if cfg.pos_emb == "rope" else (None, None))
+    x, aux = _layers(cfg, x, params["layers"], cos, sin)
+    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
+    return x, aux / cfg.n_layers
+
+
+def _layers(cfg: TransformerConfig, x: torch.Tensor, stacked: Params,
+            cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer stack over stacked weights [L, ...] → (x, the layers'
+    summed router aux), each layer under `torch.utils.checkpoint` as
+    ``cfg.remat`` says while grad is enabled; shared by every model family
+    (the transformer, ViT)."""
     context_fn = remat_policy(cfg.remat)
     training = torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     # one unbind per stacked weight: its backward stacks the layers'
     # gradients in one write, as the JAX scan does, where a select per
     # layer would add a full-size zero-padded gradient once per layer
-    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    layers = {name: w.unbind(0) for name, w in stacked.items()}
     for i in range(cfg.n_layers):
         lp = {name: ws[i] for name, ws in layers.items()}
         if context_fn is not None and training:
@@ -395,8 +430,7 @@ def _trunk(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
         else:
             x, aux_l = _layer(cfg, x, lp, cos, sin)
         aux = aux + aux_l
-    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
-    return x, aux / cfg.n_layers
+    return x, aux
 
 
 def _unembed(params: Params, cfg: TransformerConfig) -> torch.Tensor:
@@ -442,20 +476,21 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     With ``cfg.loss_chunk`` set (it must divide s), the unembedding and the
     softmax run chunk by chunk, each chunk under `torch.utils.checkpoint`,
     so one [b, chunk, vocab] block of logits exists at a time instead of
-    the full [b, s, vocab] fp32 tensor.  (The router aux term of the JAX
-    loss is 0 here: mixture of experts is not ported.)
+    the full [b, s, vocab] fp32 tensor.  A mixture-of-experts model adds
+    ``cfg.router_aux_weight`` times the layers' mean router aux loss.
     """
     # the model runs on the FULL sequence and the logits shift, as in JAX
     tokens = batch["tokens"]
     b, s = tokens.shape
     mask = batch.get("mask")
+    aux_weight = cfg.router_aux_weight if cfg.n_experts else 0.0
     if cfg.loss_chunk and s % cfg.loss_chunk:
         # falling back silently would materialize the full logits — the
         # memory cliff loss_chunk exists to avoid
         raise ValueError(f"seq length {s} is not divisible by "
                          f"loss_chunk={cfg.loss_chunk}")
     if cfg.loss_chunk:
-        x, _ = _trunk(params, tokens, cfg)
+        x, aux = _trunk(params, tokens, cfg)
         # fp32 accumulation of cfg.dtype operands, as forward_with_aux
         w32 = _unembed(params, cfg).float()
         # the LAST position's target is a dummy 0 with weight 0
@@ -475,16 +510,16 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
                                            use_reentrant=False)
             else:
                 total = total + _chunk_loss_sum(*part)
-        return total / valid.sum().clamp_min(1.0)
+        return total / valid.sum().clamp_min(1.0) + aux_weight * aux
 
-    logits, _ = forward_with_aux(params, tokens, cfg)
+    logits, aux = forward_with_aux(params, tokens, cfg)
     losses = F.cross_entropy(logits[:, :-1].flatten(0, 1),
                              tokens[:, 1:].flatten().long(),
                              reduction="none").view(b, s - 1)
     if mask is not None:
         m = mask[:, 1:].float()
-        return (losses * m).sum() / m.sum().clamp_min(1.0)
-    return losses.mean()
+        return (losses * m).sum() / m.sum().clamp_min(1.0) + aux_weight * aux
+    return losses.mean() + aux_weight * aux
 
 
 def param_leaves(params: Params) -> List[torch.Tensor]:
@@ -532,22 +567,13 @@ def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer,
         raise ValueError(f"accum_steps={accum_steps}: must be >= 1")
 
     def grads_of(params, leaves, batch):
-        # the gradients w.r.t. aliases of the parameters, so the caller's
-        # tensors keep requires_grad as they were
-        alias = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss = lm_loss(_with_leaves(params, alias), batch, cfg)
-            grads = torch.autograd.grad(loss, alias)
-        return loss.detach(), grads
+        loss, _, grads = _loss_and_grads(
+            lambda p: (lm_loss(p, batch, cfg), {}), params, leaves)
+        return loss, grads
 
     def step(params: Params, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
-        leaves = param_leaves(params)
-        owned = {id(p) for group in optimizer.param_groups
-                 for p in group["params"]}
-        if owned != {id(p) for p in leaves}:
-            raise ValueError("the optimizer must be built over "
-                             "param_leaves(params)")
+        leaves = _owned_leaves(optimizer, params)
         if accum_steps > 1:
             full = batch["tokens"].shape[0]
             if full % accum_steps:
@@ -579,11 +605,47 @@ def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer,
         else:
             loss, grads = grads_of(params, leaves, batch)
         grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        for p, g in zip(leaves, grads):
-            p.grad = g
-        optimizer.step()
-        for p in leaves:
-            p.grad = None
+        _apply_grads(optimizer, leaves, grads)
         return {"loss": loss, "grad_norm": grad_norm}
 
     return step
+
+
+def _owned_leaves(optimizer: torch.optim.Optimizer,
+                 params: Params) -> List[torch.Tensor]:
+    """``param_leaves(params)``, after checking that ``optimizer`` was built
+    over exactly those tensors."""
+    leaves = param_leaves(params)
+    owned = {id(p) for group in optimizer.param_groups
+             for p in group["params"]}
+    if owned != {id(p) for p in leaves}:
+        raise ValueError("the optimizer must be built over "
+                         "param_leaves(params)")
+    return leaves
+
+
+def _loss_and_grads(loss_fn: Callable, params: Params,
+                    leaves: List[torch.Tensor]):
+    """``loss_fn(params) -> (loss, {name: metric})`` and the loss's
+    gradients with respect to ``leaves`` (``param_leaves(params)``), taken
+    through aliases of the parameters so the caller's tensors keep
+    ``requires_grad`` as they were.  → (loss, metrics, grads), the loss and
+    metrics detached."""
+    alias = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(_with_leaves(params, alias))
+        grads = torch.autograd.grad(loss, alias)
+    return (loss.detach(), {key: val.detach() for key, val in metrics.items()},
+            grads)
+
+
+def _apply_grads(optimizer: torch.optim.Optimizer,
+                leaves: List[torch.Tensor], grads) -> None:
+    """One optimizer step with ``grads`` as the leaves' ``.grad``, which
+    are cleared again after it: the parameters and the optimizer's state
+    change in place."""
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    optimizer.step()
+    for p in leaves:
+        p.grad = None

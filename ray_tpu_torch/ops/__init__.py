@@ -1,5 +1,6 @@
 """Operator library of the port (counterpart of ``ray_tpu.ops``): norms,
-rotary embeddings, and attention with the Hopper flash kernels."""
+rotary embeddings, attention with the Hopper flash kernels, and the
+mixture-of-experts FFN."""
 
 from .norms import layernorm, rmsnorm  # noqa: F401
 from .rotary import apply_rotary, rotary_angles  # noqa: F401
@@ -7,6 +8,12 @@ from .attention import (  # noqa: F401
     multi_head_attention,
     reference_attention,
     repeat_kv,
+)
+from .moe import (  # noqa: F401
+    expert_capacity,
+    moe_ffn,
+    moe_ffn_reference,
+    route,
 )
 from .flash_attention import (  # noqa: F401
     flash_attention,

@@ -65,5 +65,6 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl == "ring":
         raise NotImplementedError(
             "ring attention is not ported yet: it comes with the "
-            "parallelism slice (ray_tpu/ops/ring_attention.py)")
+            "parallelism slice (ROADMAP queue 1 item 8, "
+            "ray_tpu/ops/ring_attention.py)")
     raise ValueError(f"unknown attention impl {impl!r}")

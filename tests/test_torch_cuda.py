@@ -253,13 +253,14 @@ def test_flash_bwd_rejects_what_the_kernels_do_not_take(cuda):
 
 # -- the serve engine's decode step as a CUDA graph ---------------------------
 
-def _tiny_slot_state(device, dtype, slots=4, max_len=64, seed=0):
-    """A tiny llama's params and a slot cache of random K/V, each slot at
-    another pos (one on the last row, one past the end)."""
+def _tiny_slot_state(device, dtype, slots=4, max_len=64, seed=0, **kw):
+    """A tiny llama's params (``kw`` changes its config) and a slot cache
+    of random K/V, each slot at another pos (one on the last row, one past
+    the end)."""
     from ray_tpu_torch.models import (TransformerConfig, init_params,
                                       init_slot_cache)
 
-    cfg = TransformerConfig.tiny(dtype=dtype, param_dtype=dtype)
+    cfg = TransformerConfig.tiny(dtype=dtype, param_dtype=dtype, **kw)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         seed), device)
     cache = init_slot_cache(cfg, slots, max_len, device)
@@ -273,10 +274,20 @@ def _tiny_slot_state(device, dtype, slots=4, max_len=64, seed=0):
 
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])
 def test_decode_step_graph_matches_the_eager_step(cuda, dtype):
+    _graph_against_eager(cuda, dtype)
+
+
+def test_moe_decode_step_graph_matches_the_eager_step(cuda):
+    """With experts, the step still captures (routing reads nothing back
+    to the host) and replays bitwise the eager step."""
+    _graph_against_eager(cuda, "bf16", n_experts=8, expert_top_k=2)
+
+
+def _graph_against_eager(cuda, dtype, **kw):
     from ray_tpu_torch.models import decode_step_slots
     from ray_tpu_torch.serve.step_graph import FusedDecodeStep
 
-    cfg, params, cache = _tiny_slot_state(cuda, DTYPES[dtype])
+    cfg, params, cache = _tiny_slot_state(cuda, DTYPES[dtype], **kw)
     saved = {name: t.clone() for name, t in cache.items()}
     tokens = np.array([3, 9, 27, 81])
     active = np.array([True, True, False, True])
@@ -340,3 +351,56 @@ def test_engine_on_the_card_matches_the_cpu_in_fp32(cuda):
         if device != "cpu":
             assert stats["graph_replays"] == stats["steps"] > 0
     assert streams["cpu"] == streams[str(cuda)]
+
+
+# -- mixture of experts and ViT at their full widths --------------------------
+
+def test_moe_layer_at_gpt2_small_widths_matches_the_reference(cuda):
+    """gpt2-small's MoE FFN (d 768, d_ff 3072, 8 experts, top 2) in bf16
+    with ample capacity (factor E / k: no token drops) against the
+    per-token fp32 reference: the routing is the same fp32 arithmetic, the
+    expert products round to bf16 (relative error of the whole output
+    within 1e-2, each element within atol = rtol = 5e-2)."""
+    from ray_tpu_torch.ops import moe_ffn, moe_ffn_reference
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    d, f, n_experts = 768, 3072, 8
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    y = randn(2, 512, d).to(torch.bfloat16)
+    router = randn(d, n_experts, scale=d ** -0.5)
+    w_in = randn(n_experts, d, f, scale=d ** -0.5)
+    w_out = randn(n_experts, f, d, scale=f ** -0.5)
+    out, aux = moe_ffn(y, router, w_in, w_out, top_k=2,
+                       capacity_factor=n_experts / 2)
+    ref = moe_ffn_reference(y, router, w_in, w_out, top_k=2)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(aux)
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 1e-2, rel
+    torch.testing.assert_close(out.float(), ref.float(), atol=5e-2,
+                               rtol=5e-2)
+
+
+def test_vit_forward_with_flash_matches_reference_attention(cuda):
+    """ViT-B/16 (s 197, bidirectional) in bf16 through the flash kernels
+    against the same model with reference attention."""
+    import dataclasses
+
+    from ray_tpu_torch.models import ViTConfig, init_vit_params, vit_forward
+
+    cfg = ViTConfig.base()
+    params = init_vit_params(cfg, torch.Generator(device=cuda).manual_seed(
+        0), cuda)
+    images = torch.randn((8, 224, 224, 3), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    launches = flash_fwd.launches
+    with torch.no_grad():
+        got = vit_forward(params, images, cfg)
+        assert flash_fwd.launches == launches + cfg.n_layers
+        ref = vit_forward(params, images, dataclasses.replace(
+            cfg, attention_impl="reference"))
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+    assert float(cos.min()) >= 0.99

@@ -381,6 +381,48 @@ def test_spec_decode_shared_draft_matches_jax(make_pair):
     assert accepted >= 0.9 * proposed and fallbacks == 0 and not t1[2]
 
 
+def _moe_streams(core):
+    """A 40-token prompt (a 32-token admission chunk, then 1-token tails),
+    a 5-token one and a 33-token one, started together, 12 tokens each."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (40, 5, 33)]
+    starts = [core.handle({"op": "start", "prompt": p}) for p in prompts]
+    out = [_drain(core, r["sid"], list(r["token"]), 12) for r in starts]
+    for r in starts:
+        core.handle({"op": "end", "sid": r["sid"]})
+    return out
+
+
+def test_moe_engine_streams_match_jax():
+    """A mixture-of-experts model (4 experts, top 2, capacity factor 0.5,
+    so a 32-token admission chunk drops tokens that a decode step keeps)
+    through both engines, plain and speculating with a shared draft:
+    streams identical."""
+    moe = dict(max_seq_len=MAX_LEN, n_experts=4, expert_top_k=2,
+               capacity_factor=0.5)
+    jcfg = JConfig.tiny(attention_impl="reference", dtype=jnp.float32, **moe)
+    tcfg = TConfig.tiny(dtype=torch.float32, **moe)
+    jparams = jax.jit(lambda key: jinit(key, jcfg)[0])(jax.random.PRNGKey(5))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                tcfg, "cpu")
+    cores = []
+    try:
+        for engine_kw in ({}, dict(spec_draft="shared", spec_k=4)):
+            pair = (_jax_core(jcfg, jparams, engine=JEngine(**engine_kw)),
+                    TCore(tcfg, max_len=MAX_LEN, params=tparams,
+                          engine=TEngine(**engine_kw), device="cpu"))
+            cores += pair
+            jout, tout = _both(pair, _moe_streams)
+            assert tout == jout
+        assert _stats(pair[1])["spec"]["proposed"] > 0
+    finally:
+        for core in cores:
+            core._engine.shutdown()
+        for core in cores:
+            core._engine._thread.join(timeout=10)
+            assert not core._engine._thread.is_alive()
+
+
 def test_spec_decode_random_draft_matches_jax(make_pair, twins):
     """A bad draft (an untrained 1-layer model) slows a stream but never
     changes it (test_serve_spec_decode.py:254).  The draft's weights are

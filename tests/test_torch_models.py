@@ -185,8 +185,7 @@ def test_init_params_and_unported_paths():
     assert all(torch.equal(x, y) for x, y in
                zip(flat, jax.tree_util.tree_leaves(b)))
     assert torch.all(a["layers"]["attn_norm"] == 1)
-    for kw in (dict(n_experts=4), dict(pp_stages=2),
-               dict(attention_impl="ring")):
+    for kw in (dict(pp_stages=2), dict(attention_impl="ring")):
         with pytest.raises(NotImplementedError, match="parallelism slice"):
             ttr.TransformerConfig.tiny(**kw)
 

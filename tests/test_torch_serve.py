@@ -103,7 +103,7 @@ def test_chunked_prefill_core_matches_jax(prompt_len, chunk):
     assert _run(tcore, prompt, 6)[1] == _run(jcore, prompt, 6)[1]
 
 
-@pytest.mark.parametrize("option", [dict(n_experts=4), dict(pp_stages=2)])
+@pytest.mark.parametrize("option", [dict(pp_stages=2)])
 def test_unported_options_raise(option):
     """Options of a later slice still refuse to run."""
     with pytest.raises(NotImplementedError, match="parallelism slice"):
