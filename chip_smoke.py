@@ -44,7 +44,12 @@ Phases, each fatal on failure:
                launches, graph replays = steps); one resume of a stream
                continuing it; step times eager and graph, tokens/s, TTFT
                idle and under load, chunk and speculative times, device busy
-               shares, peak memory, the dispatch profile;
+               shares, peak memory, the dispatch profile.  The hooks: each
+               engine's serve series (prometheus_text) must equal its
+               stats() counts and its prefill-chunk and step spans exist;
+               a speculating fp32 run with the chaos site serve.spec_verify
+               armed to fail falls back to plain steps with the unarmed
+               stream;
   6. train   — llama-1b at bench.py's training settings (remat "dots",
                norm_remat, loss_chunk 128, bf16 weights from a seed) through
                make_train_step and torch.optim.AdamW: 8 steps on one batch of
@@ -73,11 +78,22 @@ Phases, each fatal on failure:
                at batch 64 (launches 12 each a step, the loss falling, one
                step against reference attention, images/s, MFU, peak
                memory), then batch-predict at 256 (images/s, 12 flash
-               launches, logits against reference attention).
+               launches, logits against reference attention);
+  9. rl      — a PixelPong conv-PPO rollout (256 envs x 8 steps) and one
+               update on the card against the CPU from the same weights,
+               draws and permutations (full fp32); then PPO on the card
+               at the JAX package's configurations: PixelPong with the conv
+               policy at 4096 envs x 64 steps, env_chunk 256, 2 epochs x 4
+               minibatches, lr 3e-4 (tpu_probe16.py:40-44) and CartPole
+               MLP-PPO at 128 x 128, lr 1e-3 (tpu_probe.py:219-220): a warm
+               iteration, 3 timed ones (env-steps/s), one split into the
+               rollout and the update, one profiled (device busy share,
+               largest kernels, kernels a rollout step), peak memory, a
+               finite loss and episode_reward_mean; 0 flash launches.
 The kernel phases also hold and time each kernel at the MoE train shape and
 the ViT shapes.  Each phase prints its seconds.  Then one JSON line of the
 engine's numbers, one of the moe and vit phases' (with the phase seconds),
-one of the kernels, and last the device line.  Exits non-zero without a
+one of the rl phase's, one of the kernels, and last the device line.  Exits non-zero without a
 result when no CUDA device is present.
 """
 
@@ -182,6 +198,33 @@ MOE_STREAM_PROMPTS, MOE_TTFT_PROMPT = (17, 300, 900), 900
 # the vit phase: ViT-B/16, train at batch 64 and batch-predict at 256
 # (tpu_probe20.py:92, :95)
 VIT_TRAIN_BATCH, VIT_PREDICT_BATCH = 64, 256
+# the rl phase: PPO with the conv policy on PixelPong at the JAX package's
+# configuration (tpu_probe16.py:40-44, stage rl_ppo_pixel), and CartPole
+# MLP-PPO at 128 x 128, lr 1e-3 (tpu_probe.py:219-220); the card = CPU
+# check runs a short PixelPong rollout and one update in fp32
+RL_PONG = dict(num_envs=4096, rollout_length=64, env_chunk=256,
+               num_sgd_epochs=2, num_minibatches=4, lr=3e-4, seed=0)
+RL_CARTPOLE = dict(num_envs=128, rollout_length=128, lr=1e-3, seed=0)
+RL_TIMED_ITERS = 3
+RL_PARITY_ENVS, RL_PARITY_STEPS = 256, 8
+# card against CPU, full fp32: observations, actions, rewards and dones
+# exactly; log-probs and values (conv and products summed in another order)
+# within rtol 1e-4 / atol 1e-5.  One update of the same batch (8 Adam
+# steps): the first minibatch's gradients, from the same params, within
+# 1e-4 of each leaf's norm (the CPU tests' update bound against the JAX
+# package; 1.7e-6 measured on an H100).  After that the two sides
+# step from params that differ by rounding, and Adam divides each gradient
+# element by its own running scale, so an element whose gradient is near
+# zero turns rounding into a share of a step, which the later gradients
+# carry on: an H100 run measured params up to 0.121 of a step (lr), Adam
+# moments 2.7e-3 of a leaf's norm, the last minibatch's loss parts 9.4e-6
+# apart.  The bounds below are about four times those.
+RL_TOL = (1e-4, 1e-5)
+RL_GRAD_TOL, RL_MOMENT_TOL, RL_PARAM_STEPS, RL_LOSS_TOL = \
+    1e-4, 2e-2, 0.5, (2e-3, 1e-6)
+# a sampled action may differ only where pi + noise had its top two this
+# close (fp32 logits of about 0.1 carry errors of about 1e-8)
+RL_TIE = 1e-5
 HOST_CALLS = 200   # wrapper calls timed on the host clock, no sync inside
 
 
@@ -923,6 +966,53 @@ def tokens_per_s(core):
             dt * 1e3 / max(1, b["steps"] - a["steps"]))
 
 
+# the serve series the engine feeds (core.runtime_metrics) and the stats()
+# count each must equal
+SERVE_SERIES = {
+    "ray_tpu_serve_tokens_total": lambda st: st["tokens"],
+    "ray_tpu_serve_prefill_chunks_total": lambda st: st["prefill_chunks"],
+    "ray_tpu_serve_prefix_hits_total":
+        lambda st: st["prefix"]["applied_hits"],
+    "ray_tpu_serve_prefix_tokens_reused_total":
+        lambda st: st["prefix"]["tokens_reused"],
+    "ray_tpu_serve_spec_tokens_proposed_total":
+        lambda st: st["spec"]["proposed"],
+    "ray_tpu_serve_spec_tokens_accepted_total":
+        lambda st: st["spec"]["accepted"],
+}
+
+
+def engine_hooks(card, core, what):
+    """The serve series of a stopped (or quiet) engine against its stats(),
+    and the count of its spans by kind; fails where a series differs."""
+    from ray_tpu_torch import metrics
+    from ray_tpu_torch.util import tracing
+
+    name = core.engine.name
+    st = core.handle({"op": "stats"})["engine"]
+    text = metrics.prometheus_text()
+    got, want = {}, {}
+    for series, count in SERVE_SERIES.items():
+        line = f'{series}{{deployment="{name}"}} '
+        found = [ln for ln in text.splitlines() if ln.startswith(line)]
+        got[series] = float(found[0][len(line):]) if found else 0.0
+        want[series] = float(count(st))
+    spans = {}
+    for e in tracing.span_events():
+        if e["name"].endswith(f"::{name}"):
+            kind = e["name"].split("::")[0]
+            spans[kind] = spans.get(kind, 0) + 1
+    log(f"  {what}: serve series {json.dumps(got)}; spans kept "
+        f"{json.dumps(spans)} [{card}]")
+    if got != want:
+        raise AssertionError(f"{what}: the serve series {got} differ from "
+                             f"stats() {want}")
+    if not spans.get("serve_prefill_chunk") or not (
+            spans.get("serve_decode_step") or spans.get("serve_spec_verify")):
+        raise AssertionError(f"{what}: no prefill-chunk or step spans")
+    return {"series": got, "spans": spans}
+
+
 def engine_graph_checks(card, cfg, params, out):
     """Graph against eager from one state, step times, device busy shares,
     chunk and speculative iteration times."""
@@ -1048,6 +1138,7 @@ def phase_engine(card, ops):
     from ray_tpu_torch.models import (TransformerConfig, count_params,
                                       init_params)
     from ray_tpu_torch.serve import DecodeEngineConfig, DecodeSessionCore
+    from ray_tpu_torch.util import fault_injection
 
     log("== engine: llama-1b through the continuous-batching engine, the "
         "decode step a CUDA graph")
@@ -1068,34 +1159,55 @@ def phase_engine(card, ops):
     log(f"  fp32 streams: prompts of {STREAM_PROMPTS} tokens, "
         f"{STREAM_TOKENS} tokens each")
     streams = {}
+    spec = dataclasses.replace(ecfg, spec_draft="shared", spec_k=4)
+    out["hooks"] = {}
     for what, engine in (
             ("engine", ecfg),
-            ("speculating", dataclasses.replace(ecfg, spec_draft="shared",
-                                                spec_k=4)),
+            ("speculating", spec),
+            # the chaos site armed to fail every speculative iteration:
+            # plain steps after spec_fail_disable strikes, the same stream
+            ("spec_verify armed", spec),
             ("engine=False", False)):
         core = DecodeSessionCore(cfg32, max_len=ENGINE_MAX_LEN,
                                  params=params32, engine=engine)
+        if engine is not False:
+            core.engine.name = f"fp32-{what.replace(' ', '-')}"
+        if what == "spec_verify armed":
+            fault_injection.arm([{
+                "site": "serve.spec_verify", "action": "error",
+                "match": {"regex": f"^{core.engine.name}$"}}])
         t0 = time.perf_counter()
-        streams[what] = (eager_streams if engine is False else
-                         serve_streams)(core, prompts, STREAM_TOKENS)
+        try:
+            streams[what] = (eager_streams if engine is False else
+                             serve_streams)(core, prompts, STREAM_TOKENS)
+        finally:
+            fault_injection.disarm()
         wall = time.perf_counter() - t0
         if engine is not False:
-            st = core.handle({"op": "stats"})["engine"]
             core.engine.shutdown()
             core.engine._thread.join(timeout=30)
+            st = core.handle({"op": "stats"})["engine"]
             log(f"  {what}: {st['steps']} engine iterations, "
                 f"{st['graph_replays']} graph replays, spec {st['spec']}, "
                 f"{wall:.2f} s")
+            out["hooks"][what] = engine_hooks(card, core, what)
             if what == "speculating":
                 out["fp32_spec_acceptance"] = st["spec"]["acceptance"]
                 log(f"  speculating: acceptance {st['spec']['acceptance']} "
                     f"(shared draft: near 1.0 expected)")
+            if what == "spec_verify armed" and not (
+                    st["spec"]["fallbacks"] >= 1 and st["spec"]["disabled"]):
+                raise AssertionError("the armed chaos site did not make the "
+                                     "engine fall back to plain steps")
     for i, prompt in enumerate(prompts):
         for what, got, want in (
                 ("engine against engine=False", streams["engine"][i],
                  streams["engine=False"][i]),
                 ("speculating against the engine", streams["speculating"][i],
-                 streams["engine"][i])):
+                 streams["engine"][i]),
+                ("spec_verify armed against speculating",
+                 streams["spec_verify armed"][i],
+                 streams["speculating"][i])):
             # the gap is the engine=False path's along the reference stream
             same_or_tie(f"prompt {len(prompt)}: {what}", got, want,
                         functools.partial(eager_gap, params32, cfg32, prompt,
@@ -1120,6 +1232,7 @@ def phase_engine(card, ops):
     torch.cuda.reset_peak_memory_stats()
     core = DecodeSessionCore(cfg, max_len=ENGINE_MAX_LEN, params=params,
                              engine=ecfg)
+    core.engine.name = "bf16-load"
     prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX).tolist()
     load_prompts = ([prefix + rng.integers(0, cfg.vocab_size, n).tolist()
                      for n in SHARED_SUFFIXES]
@@ -1196,7 +1309,9 @@ def phase_engine(card, ops):
             out["tokens_per_s_8"], out["ms_per_step_8"] = tokens_per_s(core)
             log(f"  8 streams decoding: {out['tokens_per_s_8']:.1f} tokens/s"
                 f" aggregate, {out['ms_per_step_8']:.3f} ms per engine step "
-                f"({THROUGHPUT_WINDOW_S:g} s window) [{card}]")
+                f"({THROUGHPUT_WINDOW_S:g} s window), with the metrics, "
+                f"spans and chaos check on (no claim; PERF.md holds the "
+                f"figures from before the hooks) [{card}]")
         else:
             out["ttft_load_ms"] = ttft_ms(core, prompts[2])
             log(f"  TTFT of a {len(prompts[2])}-token prompt: idle "
@@ -1214,6 +1329,7 @@ def phase_engine(card, ops):
         f"replays, {st['tokens']} tokens [{card}]")
     if st["graph_replays"] != st["steps"]:
         raise AssertionError("a step ran outside the graph")
+    out["hooks"]["bf16 load"] = engine_hooks(card, core, "bf16 load")
     log("  dispatch profile (MFU against 989 TFLOP/s):")
     for row in st["device_profile"]:
         log(f"      {json.dumps(row)}")
@@ -1694,6 +1810,247 @@ def phase_vit(card, ops):
     return {"vit_train": train_launches, "vit_predict": predict_launches}, out
 
 
+class fp32_ieee:
+    """Full fp32 products and convolutions on the card (no TF32) inside the
+    block, the flags as they were after it."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.fp32_precision,
+                      torch.backends.cudnn.conv.fp32_precision)
+        torch.backends.cuda.matmul.fp32_precision = "ieee"
+        torch.backends.cudnn.conv.fp32_precision = "ieee"
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.fp32_precision,
+         torch.backends.cudnn.conv.fp32_precision) = self.saved
+
+
+def rl_diverged(policy, params, traj, draws, got_action):
+    """Per env, the first step whose action differs from ``got_action``
+    (T where none does), and the largest top-two gap of ``pi + noise`` at
+    such a step: the reference's own margin there, a near-tie only when it
+    is under RL_TIE."""
+    steps, n = got_action.shape
+    differs = got_action != traj["action"]
+    first = torch.where(differs.any(0), differs.int().argmax(0),
+                        torch.full((n,), steps))
+    gap = 0.0
+    for env in torch.nonzero(first < steps).flatten().tolist():
+        t = int(first[env])
+        pi, _ = policy.forward(params, traj["obs"][t, env:env + 1])
+        top = (pi[0] + draws[t]["noise"][env]).topk(2).values
+        gap = max(gap, float(top[0] - top[1]))
+    return first, gap
+
+
+def rl_card_equals_cpu(card):
+    """A PixelPong conv-PPO rollout (RL_PARITY_ENVS x RL_PARITY_STEPS) on
+    the card and on the CPU from the same weights and draws, then one
+    update of the CPU rollout's batch on each with the same permutations,
+    in full fp32.  Envs are independent: an env whose sampled action
+    differs at some step (a near-tie of pi + noise, top two under RL_TIE)
+    is compared up to that step, and any other difference fails."""
+    from ray_tpu_torch.rl import (ClippedAdam, PixelPong, PPOConfig,
+                                  build_policy, compute_gae, make_rollout_fn,
+                                  make_update_fn)
+    from ray_tpu_torch.rl.policy import tree_leaves, tree_map
+
+    class FirstGrads(ClippedAdam):
+        """The optimizer, keeping the gradients of its first step."""
+        first = None
+
+        def update(self, grads, state, params):
+            if self.first is None:
+                self.first = [g.detach().clone() for g in grads]
+            super().update(grads, state, params)
+
+    n, steps = RL_PARITY_ENVS, RL_PARITY_STEPS
+    cfg = PPOConfig(**dict(RL_PONG, num_envs=n, rollout_length=steps))
+    gen = torch.Generator().manual_seed(1)
+    sides = {}
+    for device in ("cpu", "cuda"):
+        env = PixelPong(device=device)
+        sides[device] = (env, build_policy(env, {"hidden": cfg.hidden},
+                                           device=device))
+    env, policy = sides["cpu"]
+    params = policy.init(gen)
+    first = env.reset_draws(n, gen)
+    draws = [{"noise": policy.draw_noise(n, gen),
+              "reset": env.reset_draws(n, gen)} for _ in range(steps)]
+    perms = torch.stack([torch.randperm(n * steps, generator=gen)
+                         for _ in range(cfg.num_sgd_epochs)])
+    rollouts, updates, flat = {}, {}, None
+    with fp32_ieee():
+        for device, (env, policy) in sides.items():
+            def to(tree):
+                return tree_map(lambda x: x.to(device), tree)
+
+            p = policy.set_weights(params, policy.get_weights(params))
+            state, obs = env.reset_given(to(first))
+            traj, _, _, _, last_value = make_rollout_fn(
+                env, policy, n, steps, env_chunk=cfg.env_chunk)(
+                    p, state, obs, (), None, to(draws))
+            on_card(f"rl card = CPU, the rollout on {device}")
+            rollouts[device] = tree_map(lambda x: x.cpu(), (traj,
+                                                            last_value))
+            if flat is None:          # the CPU's batch, for both updates
+                adv, ret = compute_gae(traj, last_value, cfg.gamma,
+                                       cfg.gae_lambda)
+                flat = {"obs": traj["obs"].reshape(n * steps, -1),
+                        "action": traj["action"].reshape(-1),
+                        "logp": traj["logp"].reshape(-1),
+                        "adv": adv.reshape(-1), "ret": ret.reshape(-1)}
+            opt = FirstGrads(cfg.max_grad_norm, cfg.lr)
+            opt_state = opt.init(p)
+            _, _, metrics = make_update_fn(policy, opt, cfg, n * steps)(
+                p, opt_state, to(flat), None, perms.to(device))
+            on_card(f"rl card = CPU, the update on {device}")
+            updates[device] = tree_map(lambda x: x.detach().cpu(), {
+                "params": p, "mu": opt_state["mu"], "nu": opt_state["nu"],
+                "metrics": metrics, "grads": opt.first})
+    (cpu, cpu_last), (gpu, gpu_last) = rollouts["cpu"], rollouts["cuda"]
+    diverged, gap = rl_diverged(sides["cpu"][1], params, cpu, draws,
+                                gpu["action"])
+    n_div = int((diverged < steps).sum())
+    if gap > RL_TIE:
+        raise AssertionError(f"rl: a card action differs from the CPU's "
+                             f"where the top two were {gap:.3e} apart")
+    t = torch.arange(steps)[:, None]
+    seen, acted = t <= diverged, t < diverged     # [T, N] compared entries
+    errs = {}
+    for key, mask in (("obs", seen), ("action", acted), ("reward", acted),
+                      ("done", acted), ("logp", seen), ("value", seen)):
+        got, want = gpu[key][mask], cpu[key][mask]
+        exact = key in ("obs", "action", "reward", "done")
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f"rl: the card's rollout {key} differs "
+                                 f"from the CPU's")
+        if not exact:
+            errs[key] = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=RL_TOL[0],
+                                  atol=RL_TOL[1]):
+                raise AssertionError(f"rl: the card's {key} differs from "
+                                     f"the CPU's by {errs[key]:.3e}")
+    whole = diverged == steps
+    errs["last_value"] = float((gpu_last - cpu_last)[whole].abs().max())
+    if not torch.allclose(gpu_last[whole], cpu_last[whole], rtol=RL_TOL[0],
+                          atol=RL_TOL[1]):
+        raise AssertionError("rl: the card's last value differs")
+    gu, cu = updates["cuda"], updates["cpu"]
+    for what, bound in (("grads", RL_GRAD_TOL), ("mu", RL_MOMENT_TOL),
+                        ("nu", RL_MOMENT_TOL)):
+        errs[what] = max(float((g - c).norm() / c.norm().clamp_min(1e-30))
+                         for g, c in zip(tree_leaves(gu[what]),
+                                         tree_leaves(cu[what])))
+        if errs[what] > bound:
+            raise AssertionError(f"rl: the card's update {what} differs from "
+                                 f"the CPU's by {errs[what]:.3e} of a norm")
+    pairs = list(zip(tree_leaves(gu["metrics"]), tree_leaves(cu["metrics"])))
+    errs["metrics"] = max(float((g - c).abs().max()) for g, c in pairs)
+    if not all(torch.allclose(g, c, rtol=RL_LOSS_TOL[0],
+                              atol=RL_LOSS_TOL[1]) for g, c in pairs):
+        raise AssertionError(f"rl: the card's loss parts differ from the "
+                             f"CPU's by {errs['metrics']:.3e}")
+    errs["params_in_steps"] = max(float((g - c).abs().max()) / cfg.lr
+                                  for g, c in zip(tree_leaves(gu["params"]),
+                                                  tree_leaves(cu["params"])))
+    if errs["params_in_steps"] > RL_PARAM_STEPS:
+        raise AssertionError(f"rl: a card param differs from the CPU's by "
+                             f"{errs['params_in_steps']:.3f} Adam steps")
+    log(f"  card = CPU: PixelPong conv-PPO, {n} envs x {steps} steps, fp32 "
+        f"(no TF32): observations, actions, rewards, dones equal "
+        f"({n_div} envs compared up to a near-tie action, top two "
+        f"{gap:.2e} apart); max |diff| logp {errs['logp']:.3e}, value "
+        f"{errs['value']:.3e}; one update ({cfg.num_sgd_epochs} epochs x "
+        f"{cfg.num_minibatches} minibatches) of the same batch: first "
+        f"gradients {errs['grads']:.2e} of a norm, Adam mu {errs['mu']:.2e}, "
+        f"nu {errs['nu']:.2e}, loss parts {errs['metrics']:.3e}, params "
+        f"{errs['params_in_steps']:.3f} of an Adam step (lr) [{card}]")
+    return {"envs": n, "steps": steps, "near_tie_envs": n_div,
+            "max_abs_err": errs}
+
+
+def rl_run(card, what, env_cls, config):
+    """One warm iteration, RL_TIMED_ITERS timed ones (synced by the
+    iteration's read of its metrics), one split into the rollout with GAE
+    and the update (each synced), one profiled; → its readings."""
+    from ray_tpu_torch.rl import PPOConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = PPOConfig(env=env_cls, **config)
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    res = algo.train()
+    warm_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(RL_TIMED_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = algo.train()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    collected = algo.collect()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics = algo.learn(collected)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    loss = {k: float(v) for k, v in metrics.items()}
+    wall = float(np.median(walls))
+    steps = cfg.num_envs * cfg.rollout_length
+    kernels_ms = profile_step(card, f"{what}: one profiled iteration",
+                              algo.train, wall, n=6)
+    ops_n, kernels_n = host_ops(algo.collect)
+    out = {"env_steps_per_s": steps / wall * 1e3, "iteration_ms": walls,
+           "warm_s": warm_s, "rollout_ms": (t1 - t0) * 1e3,
+           "update_ms": (t2 - t1) * 1e3, "loss": loss,
+           "episode_reward_mean": res["episode_reward_mean"],
+           "device_busy_ms": sum(kernels_ms.values()) if kernels_ms
+           else None,
+           "ops_per_rollout_step": ops_n / cfg.rollout_length,
+           "kernels_per_rollout_step": kernels_n / cfg.rollout_length,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out["device_busy_share"] = (out["device_busy_ms"] / wall
+                                if kernels_ms else None)
+    log(f"  {what}: {cfg.num_envs} envs x {cfg.rollout_length} steps, "
+        f"{out['env_steps_per_s']:.0f} env-steps/s (iterations "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms; the first, warm, "
+        f"{warm_s:.2f} s with the build); rollout + GAE "
+        f"{out['rollout_ms']:.1f} ms, update {out['update_ms']:.1f} ms "
+        f"(synced); {ops_n / cfg.rollout_length:.0f} ops and "
+        f"{kernels_n / cfg.rollout_length:.0f} kernels a rollout step; loss "
+        f"{loss}; episode_reward_mean {res['episode_reward_mean']:.3f}; peak "
+        f"{out['peak_gib']:.2f} GiB [{card}]")
+    if not all(np.isfinite(v) for v in loss.values()) or not np.isfinite(
+            res["episode_reward_mean"]):
+        raise AssertionError(f"{what}: a loss or the episode reward is not "
+                             f"finite")
+    del algo, collected
+    gc.collect()
+    return out
+
+
+def phase_rl(card, ops):
+    from ray_tpu_torch.rl import CartPole, PixelPong
+
+    log("== rl: PPO on the card (PixelPong conv-PPO at 4096 x 64, CartPole "
+        "MLP-PPO at 128 x 128), and a PixelPong rollout and update against "
+        "the CPU")
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    out = {"card_equals_cpu": rl_card_equals_cpu(card)}
+    for kernel in kernels:
+        kernel.launches = 0
+    out["pixelpong"] = rl_run(card, "PixelPong conv-PPO", PixelPong,
+                              RL_PONG)
+    out["cartpole"] = rl_run(card, "CartPole MLP-PPO", CartPole,
+                             RL_CARTPOLE)
+    launches = {k.__name__: k.launches for k in kernels}
+    if any(launches.values()):
+        raise AssertionError(f"the rl path launched {launches}")
+    return launches, out
+
+
 def top_kernels(by_name, n):
     """The ``n`` kernels with the most device time, then the port's own
     (flash_*) kernels that are not among them."""
@@ -1814,6 +2171,7 @@ def main():
     by_path["train"] = timed("train", phase_train, card, ops)
     moe_paths, moe = timed("moe", phase_moe, card, ops)
     vit_paths, vit = timed("vit", phase_vit, card, ops)
+    by_path["rl"], rl = timed("rl", phase_rl, card, ops)
     by_path.update(moe_paths)
     by_path.update(vit_paths)
     log(f"  phase seconds: {json.dumps(seconds)}")
@@ -1825,6 +2183,7 @@ def main():
     log(card)
     print(json.dumps({"engine": engine}))
     print(json.dumps({"moe": moe, "vit": vit, "seconds": seconds}))
+    print(json.dumps({"rl": rl, "seconds": seconds["rl"]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

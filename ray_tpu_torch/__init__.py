@@ -1,16 +1,18 @@
 """ray_tpu_torch — the PyTorch/CUDA port of ray_tpu for NVIDIA Hopper.
 
 The JAX package ``ray_tpu`` is the reference; this package mirrors its
-structure (``ops``, ``models``, ``serve``) in PyTorch, and every Pallas TPU
+structure (``ops``, ``models``, ``serve``, ``rl``, ``air``, ``train``,
+``metrics``, ``core``, ``util``) in PyTorch, and every Pallas TPU
 kernel on a ported path becomes a hand-written CUDA kernel (``csrc/``,
 built by ``kernels.build``).  It imports nothing of ``ray_tpu`` and nothing
 of JAX.  Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 
-Ported so far: llama/gpt2 whole-prompt serving — ``models.prefill``,
-``models.decode_step``, ``models.generate`` and
-``serve.DecodeSessionCore(engine=False)`` — with the flash-attention
-forward kernel.
+Ported so far: serving (the continuous-batching engine, with its metrics,
+spans and chaos site, and the whole-prompt path) and training of the
+transformer family, dense or with experts, and ViT, with the three
+flash-attention kernels; the PPO family of RL.  ``ROADMAP.md`` lists what
+is still to come.
 """
 
 from .device import resolve_device  # noqa: F401

@@ -3,7 +3,9 @@
 `params_from_numpy` takes the nested dict that ``ray_tpu.models.init_params``
 (or ``init_vit_params``) returns, with every leaf converted to a numpy array
 (``np.asarray``), and copies it into tensors in the same stacked layout.  It
-changes no value and no dtype.  Needs no JAX: the caller does the
+changes no value and no dtype.  `policy_params_from_numpy` does the same for
+an RL policy's params (``ray_tpu.rl`` policies' ``init``), permuting the
+conv kernels from HWIO to OIHW.  Needs no JAX: the caller does the
 ``np.asarray``.
 """
 
@@ -57,3 +59,35 @@ def params_from_numpy(tree: Any, cfg: Union[TransformerConfig, ViTConfig],
     shapes = (vit_param_shapes(cfg) if isinstance(cfg, ViTConfig)
               else param_shapes(cfg))
     return walk(tree, shapes, "")
+
+
+def policy_params_from_numpy(policy: Any, tree: Any) -> Any:
+    """A JAX policy's params as numpy arrays → the port's params for
+    ``policy`` (an `rl.MLPPolicy`, `LSTMPolicy` or `ConvPolicy`) on its
+    device.  Conv kernels go from the JAX package's HWIO to OIHW; nothing
+    else changes.  Raises if the tree's structure or shapes are not those
+    ``policy`` defines."""
+
+    def walk(node, shapes, path, conv=False):
+        if isinstance(shapes, dict):
+            if not isinstance(node, dict) or set(node) != set(shapes):
+                raise ValueError(f"policy parameters at {path or '/'} do not "
+                                 f"have the keys {sorted(shapes)}")
+            return {k: walk(node[k], shapes[k], f"{path}/{k}",
+                            conv or k == "convs") for k in shapes}
+        if isinstance(shapes, list):
+            if not isinstance(node, (list, tuple)) or \
+                    len(node) != len(shapes):
+                raise ValueError(f"policy parameters at {path}: expected "
+                                 f"{len(shapes)} layers")
+            return [walk(n, s, f"{path}/{i}", conv)
+                    for i, (n, s) in enumerate(zip(node, shapes))]
+        arr = np.asarray(node)
+        if conv and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+        if arr.shape != tuple(shapes):
+            raise ValueError(f"{path}: shape {arr.shape}, policy expects "
+                             f"{tuple(shapes)}")
+        return _tensor(arr, policy.device)
+
+    return walk(tree, policy.param_shapes(), "")

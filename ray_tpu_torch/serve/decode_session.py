@@ -30,9 +30,15 @@ Two decode data planes live here, as in the JAX package:
   session table, one whole-prompt `models.prefill` (the flash kernel) per
   ``start`` and one `models.decode_step` per ``next``.
 
-The JAX engine's hooks into the serve runtime (the nodelet metrics push,
-the runtime metric counters, trace spans, the chaos site and the replica
-context) are not ported; the engine's own counters in ``stats()`` are.
+The engine feeds the JAX engine's serve series
+(`core.runtime_metrics`: tokens, prefill chunks, prefix hits and tokens
+reused, speculative tokens proposed and accepted, the acceptance ratio,
+the batch occupancy histogram), records its spans (`util.tracing`:
+``serve_prefill_chunk::``, ``serve_admission::``, ``serve_spec_fallback::``,
+``serve_spec_verify::`` and ``serve_decode_step::<name>``) and honours the
+chaos site ``serve.spec_verify`` (`util.fault_injection`), all on the host
+around the device work, with no read of the device of their own.  The
+nodelet metrics push and the replica context wait for the port's runtime.
 """
 
 from __future__ import annotations
@@ -48,12 +54,20 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.runtime_metrics import (SERVE_DECODE_OCCUPANCY,
+                                    SERVE_PREFILL_CHUNKS, SERVE_PREFIX_HITS,
+                                    SERVE_PREFIX_TOKENS_REUSED,
+                                    SERVE_SPEC_ACCEPTANCE,
+                                    SERVE_SPEC_ACCEPTED, SERVE_SPEC_PROPOSED,
+                                    SERVE_TOKENS)
 from ..device import DeviceLike, resolve_device
 from ..exceptions import ReplicaUnavailableError
 from ..models import (cache_gather_slot, cache_insert_slot, decode_step,
                       draft_propose_slots, engine_flops_table, init_kv_cache,
                       init_params, init_slot_cache, prefill, prefill_chunk,
                       prefill_chunked, verify_step_slots)
+from ..util import fault_injection as fi
+from ..util import tracing
 from ..util.device_profile import DispatchProfiler
 from .config import DecodeEngineConfig
 from .prefix_cache import PrefixIndex
@@ -535,6 +549,9 @@ class ContinuousBatchingEngine:
                         self.prefix_hits += 1
                         self.prefix_tokens_reused += depth
                     self._shape_seen("prefix_gather", 1)
+                    SERVE_PREFIX_HITS.inc(tags={"deployment": self.name})
+                    SERVE_PREFIX_TOKENS_REUSED.inc(
+                        depth, tags={"deployment": self.name})
             if not seeded:
                 sess.pcache = init_kv_cache(self.cfg, 1, self.max_len,
                                             self.device)
@@ -549,6 +566,7 @@ class ContinuousBatchingEngine:
         if sess.t_pf is None:          # the queue phase ends at the first
             sess.t_pf = time.monotonic()  # chunk of the prompt
             self.phase_s["queue"] += sess.t_pf - sess.t_enq
+        t0 = time.time()
         sess.plogits, sess.pcache = self._chunk(self.params, toks,
                                                 sess.pcache, cfg=self.cfg)
         self._shape_seen("prefill_chunk", 1, take)
@@ -560,6 +578,10 @@ class ContinuousBatchingEngine:
         self._prof.note_tokens("prefill_chunk", take)
         with self._cond:   # stats() reads this counter
             self.prefill_chunks += 1
+        SERVE_PREFILL_CHUNKS.inc(tags={"deployment": self.name})
+        tracing.record_span(f"serve_prefill_chunk::{self.name}", "serve",
+                            t0, time.time(), tokens=take,
+                            deployment=self.name)
         if sess.poff < n:
             return None
         return int(torch.argmax(sess.plogits, dim=-1)[0])
@@ -570,7 +592,18 @@ class ContinuousBatchingEngine:
         pending token and ``spec_k - 1`` proposals in one forward.
         Returns host arrays ``(greedy [S, spec_k], accepted [S])``; raises
         on any draft/verify fault, leaving ``pos`` as it was (it is
-        committed last), so the loop continues with a plain step."""
+        committed last), so the loop continues with a plain step.  The
+        chaos site ``serve.spec_verify`` sleeps here (delay, latency) or
+        raises (any other action)."""
+        if fi.ACTIVE is not None:
+            act = fi.ACTIVE.point("serve.spec_verify", self.name)
+            if act is not None:
+                if act["action"] in ("delay", "latency"):
+                    time.sleep(max(0.0, act["delay_s"]))
+                else:
+                    raise RuntimeError(
+                        f"chaos: injected spec_verify failure for "
+                        f"{self.name}")
         self._fused.load(tokens, active)
         tok, act = self._fused.tok, self._fused.active
         # the draft cache's pos is re-synced from the target every
@@ -657,6 +690,7 @@ class ContinuousBatchingEngine:
                     tokens[s.slot] = s.last_tok
             # ---- device work, outside the lock (nobody else touches the
             # slot cache, and client ops must not stall on compute)
+            t0 = time.time()
             for sess, pcache, dcache, slot in admitted:
                 self._insert(self._cache, pcache, slot)
                 if self._spec and dcache is not None:
@@ -678,9 +712,15 @@ class ContinuousBatchingEngine:
                         self._cond.notify_all()
             if ready:
                 now = time.monotonic()
+                now_wall = time.time()
                 with self._cond:
                     for sess, first in ready:
                         sess.t_ready = now
+                        # the admission span: enqueue -> first token
+                        tracing.record_span(
+                            f"serve_admission::{self.name}", "serve",
+                            now_wall - (now - sess.t_enq), now_wall,
+                            sid=sess.sid, deployment=self.name)
                         sess.first_tok = sess.last_tok = first
                         sess.pos = sess.poff
                         sess.ready = True
@@ -698,13 +738,17 @@ class ContinuousBatchingEngine:
                 try:
                     spec_out = self._spec_step(tokens, active)
                     self._spec_fail_streak = 0
-                except Exception:
+                except Exception as e:
                     with self._cond:   # stats() reads these
                         self.spec_fallbacks += 1
                         self._spec_fail_streak += 1
                         if self._spec_fail_streak >= \
                                 max(1, self.ecfg.spec_fail_disable):
                             self._spec_disabled = True
+                    tracing.record_span(
+                        f"serve_spec_fallback::{self.name}", "serve",
+                        t0, time.time(), error=repr(e),
+                        deployment=self.name)
             if spec_out is None:
                 try:
                     new_toks = self._step(tokens, active)
@@ -718,6 +762,7 @@ class ContinuousBatchingEngine:
                         self._cond.notify_all()
                     continue
             occupancy = len(batch)
+            now = time.time()   # the step's span ends after its token read
             # MFU numerators: useful tokens only (active slots)
             if spec_out is not None:
                 self._prof.note_tokens("draft_propose",
@@ -725,9 +770,20 @@ class ContinuousBatchingEngine:
                 self._prof.note_tokens("verify", occupancy * self._spec_k)
                 greedy, accepted = spec_out
                 emitted = int(sum(accepted[s.slot] for s in batch))
+                tracing.record_span(
+                    f"serve_spec_verify::{self.name}", "serve", t0, now,
+                    batch=occupancy,
+                    proposed=(self._spec_k - 1) * occupancy,
+                    emitted=emitted, deployment=self.name)
             else:
                 self._prof.note_tokens("decode_step", occupancy)
                 emitted = occupancy
+                tracing.record_span(f"serve_decode_step::{self.name}",
+                                    "serve", t0, now, batch=occupancy,
+                                    deployment=self.name)
+            SERVE_DECODE_OCCUPANCY.observe(occupancy,
+                                           {"deployment": self.name})
+            SERVE_TOKENS.inc(emitted, {"deployment": self.name})
             with self._cond:
                 self.steps += 1
                 self.tokens += emitted
@@ -754,6 +810,15 @@ class ContinuousBatchingEngine:
                         if s.pos >= self.max_len:
                             s.done = True  # cache full: reaped next turn
                 self._cond.notify_all()
+            if spec_out is not None:
+                SERVE_SPEC_PROPOSED.inc((self._spec_k - 1) * occupancy,
+                                        {"deployment": self.name})
+                SERVE_SPEC_ACCEPTED.inc(emitted - occupancy,
+                                        {"deployment": self.name})
+                if self.spec_proposed:
+                    SERVE_SPEC_ACCEPTANCE.set(
+                        self.spec_accepted / self.spec_proposed,
+                        {"deployment": self.name})
 
 
 def _host_tokens(prompt) -> Optional[tuple]:

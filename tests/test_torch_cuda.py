@@ -404,3 +404,149 @@ def test_vit_forward_with_flash_matches_reference_attention(cuda):
     assert torch.isfinite(got).all()
     cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
     assert float(cos.min()) >= 0.99
+
+
+# -- the engine's hooks and PPO on the card ------------------------------------
+
+def test_engine_hooks_on_the_card(cuda):
+    """A speculating fp32 engine on the card feeds the serve series with its
+    stats() counts and records its spans; armed with serve.spec_verify it
+    falls back to plain graph steps with the same stream."""
+    from ray_tpu_torch import metrics
+    from ray_tpu_torch.models import TransformerConfig, init_params
+    from ray_tpu_torch.serve import DecodeEngineConfig, DecodeSessionCore
+    from ray_tpu_torch.util import fault_injection, tracing
+
+    cfg = TransformerConfig.tiny(max_seq_len=64, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    streams = {}
+    for what in ("spec", "armed"):
+        core = DecodeSessionCore(cfg, max_len=64, params=params,
+                                 engine=DecodeEngineConfig(
+                                     prefill_chunk_tokens=4,
+                                     spec_draft="shared", spec_k=3))
+        core.engine.name = f"card-hooks-{what}"
+        if what == "armed":
+            fault_injection.arm([{"site": "serve.spec_verify",
+                                  "action": "error", "match": {
+                                      "regex": f"^{core.engine.name}$"}}])
+        try:
+            r = core.handle({"op": "start", "prompt": list(range(11))})
+            toks = list(r["token"])
+            while len(toks) < 20:
+                got = core.handle({"op": "next_chunk", "sid": r["sid"],
+                                   "max_tokens": 20 - len(toks)})
+                assert "error" not in got, got
+                toks += got["tokens"]
+            core.handle({"op": "end", "sid": r["sid"]})
+        finally:
+            fault_injection.disarm()
+            core.engine.shutdown()
+            core.engine._thread.join(timeout=30)
+        streams[what] = toks
+        st = core.handle({"op": "stats"})["engine"]
+        text = metrics.prometheus_text()
+        for series, want in (("ray_tpu_serve_tokens_total", st["tokens"]),
+                             ("ray_tpu_serve_prefill_chunks_total",
+                              st["prefill_chunks"])):
+            line = f'{series}{{deployment="{core.engine.name}"}} '
+            assert f"{line}{float(want)}" in text, series
+        names = {e["name"] for e in tracing.span_events()}
+        assert f"serve_prefill_chunk::{core.engine.name}" in names
+        if what == "armed":
+            assert st["spec"]["disabled"] and st["spec"]["fallbacks"] == 3
+            assert st["graph_replays"] > 0
+    assert streams["armed"] == streams["spec"]
+
+
+def test_ppo_rollout_and_update_on_the_card_match_the_cpu(cuda):
+    """A PixelPong conv-PPO rollout (64 envs x 4 steps) from the same
+    weights and draws, then one update (2 epochs x 4 minibatches) of the
+    CPU's batch with the same permutations, in full fp32: observations,
+    actions, rewards and dones equal, but for an env whose action is a
+    near-tie of pi + noise (top two within 1e-5; that env is compared up
+    to there); log-probs and values within rtol 1e-4 / atol 1e-5; the first
+    minibatch's gradients within 1e-4 of each leaf's norm; the params after
+    the update's 8 Adam steps within half a step (lr) per element, as Adam
+    turns the rounding of a near-zero gradient element into a share of a
+    step (chip_smoke.py's rl phase and bounds, smaller)."""
+    from ray_tpu_torch.rl import (ClippedAdam, PixelPong, PPOConfig,
+                                  build_policy, compute_gae,
+                                  make_rollout_fn, make_update_fn)
+    from ray_tpu_torch.rl.policy import tree_leaves, tree_map
+
+    n, steps = 64, 4
+    cfg = PPOConfig(num_envs=n, rollout_length=steps, num_sgd_epochs=2,
+                    num_minibatches=4)
+
+    class FirstGrads(ClippedAdam):
+        first = None
+
+        def update(self, grads, state, params):
+            if self.first is None:
+                self.first = [g.detach().clone() for g in grads]
+            super().update(grads, state, params)
+
+    gen = torch.Generator().manual_seed(0)
+    cpu_env = PixelPong(device="cpu")
+    cpu_pol = build_policy(cpu_env, {"hidden": cfg.hidden}, device="cpu")
+    params = cpu_pol.init(gen)
+    first = cpu_env.reset_draws(n, gen)
+    draws = [{"noise": cpu_pol.draw_noise(n, gen),
+              "reset": cpu_env.reset_draws(n, gen)} for _ in range(steps)]
+    perms = torch.stack([torch.randperm(n * steps, generator=gen)
+                         for _ in range(2)])
+    saved = (torch.backends.cuda.matmul.fp32_precision,
+             torch.backends.cudnn.conv.fp32_precision)
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    out, flat = {}, None
+    try:
+        for device in ("cpu", cuda):
+            env = PixelPong(device=device)
+            pol = build_policy(env, {"hidden": cfg.hidden}, device=device)
+
+            def to(tree):
+                return tree_map(lambda x: x.to(device), tree)
+
+            p = pol.set_weights(params, pol.get_weights(params))
+            state, obs = env.reset_given(to(first))
+            traj, _, _, _, last = make_rollout_fn(env, pol, n, steps)(
+                p, state, obs, (), None, to(draws))
+            if flat is None:          # the CPU's batch, for both updates
+                adv, ret = compute_gae(traj, last, cfg.gamma, cfg.gae_lambda)
+                flat = {"obs": traj["obs"].reshape(n * steps, -1),
+                        "action": traj["action"].reshape(-1),
+                        "logp": traj["logp"].reshape(-1),
+                        "adv": adv.reshape(-1), "ret": ret.reshape(-1)}
+            opt = FirstGrads(cfg.max_grad_norm, cfg.lr)
+            make_update_fn(pol, opt, cfg, n * steps)(
+                p, opt.init(p), to(flat), None, perms.to(device))
+            out[str(device)] = tree_map(lambda x: x.cpu(),
+                                        (traj, p, opt.first))
+    finally:
+        (torch.backends.cuda.matmul.fp32_precision,
+         torch.backends.cudnn.conv.fp32_precision) = saved
+    (ctraj, cparams, cgrads), (gtraj, gparams, ggrads) = (out["cpu"],
+                                                          out[str(cuda)])
+    differs = gtraj["action"] != ctraj["action"]
+    diverged = torch.where(differs.any(0), differs.int().argmax(0),
+                           torch.full((n,), steps))
+    for env in torch.nonzero(diverged < steps).flatten().tolist():
+        t = int(diverged[env])
+        pi, _ = cpu_pol.forward(params, ctraj["obs"][t, env:env + 1])
+        top = (pi[0] + draws[t]["noise"][env]).topk(2).values
+        assert float(top[0] - top[1]) <= 1e-5, (t, env)
+    t = torch.arange(steps)[:, None]
+    seen, acted = t <= diverged, t < diverged
+    for k, mask in (("obs", seen), ("action", acted), ("reward", acted),
+                    ("done", acted)):
+        assert torch.equal(gtraj[k][mask], ctraj[k][mask]), k
+    for k in ("logp", "value"):
+        torch.testing.assert_close(gtraj[k][seen], ctraj[k][seen],
+                                   rtol=1e-4, atol=1e-5)
+    for g, c in zip(ggrads, cgrads):
+        assert float((g - c).norm() / c.norm()) <= 1e-4
+    for g, c in zip(tree_leaves(gparams), tree_leaves(cparams)):
+        assert float((g - c).abs().max()) <= 0.5 * cfg.lr

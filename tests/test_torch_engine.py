@@ -518,6 +518,51 @@ def test_a_failing_verify_degrades_to_plain_decode(make_pair, twins,
         core.engine.shutdown()
 
 
+@pytest.mark.parametrize("match,action,fallbacks,disabled", [
+    ({}, "error", 3, True), ({"nth": 2}, "error", 1, False),
+    ({}, "delay", 0, False)])
+def test_the_chaos_site_degrades_to_plain_decode(make_pair, twins, match,
+                                                 action, fallbacks,
+                                                 disabled):
+    """The chaos site serve.spec_verify armed as the JAX package's test
+    arms it (test_serve_spec_decode.py:317): ``error`` on every
+    iteration falls back to plain steps until speculation is disabled, on
+    the second iteration only for that one; ``delay`` slows every
+    speculative iteration by ``delay_s``.  The stream never changes.  The
+    rule matches this engine's name only, so the module's other engines
+    never meet it."""
+    from ray_tpu_torch.util import fault_injection as fi
+    from ray_tpu_torch.util import tracing
+    _, _, tcfg, tparams = twins
+    prompt = [5, 6, 7]
+    ref = _stream(make_pair("default")[0], prompt, 16)
+    core = TCore(tcfg, max_len=MAX_LEN, params=tparams, device="cpu",
+                 engine=TEngine(spec_draft="shared", spec_k=4,
+                                spec_fail_disable=3))
+    core.engine.name = f"chaos-{action}-{len(match)}"
+    fi.arm([{"site": "serve.spec_verify", "action": action, "delay_s": 0.02,
+             "match": dict(match, regex=f"^{core.engine.name}$")}])
+    try:
+        assert _stream(core, prompt, 16) == ref
+        # the ended session leaves its slot after the last iteration that
+        # counted it: the counters and spans are then settled
+        _until(lambda: _stats(core)["occupied_slots"] == 0)
+        spec = _stats(core)["spec"]
+        fired = fi.injected_counts().get(f"serve.spec_verify|{action}", 0)
+        verified = [e for e in tracing.span_events() if e["name"] ==
+                    f"serve_spec_verify::{core.engine.name}"]
+    finally:
+        fi.disarm()
+        core.engine.shutdown()
+    assert spec["fallbacks"] == fallbacks
+    assert spec["disabled"] is disabled
+    if action == "delay":
+        assert fired == len(verified) > 0
+        assert all(e["dur"] >= 0.02e6 for e in verified)
+    else:
+        assert fired == fallbacks
+
+
 # ------------------------------------------------------------- the rest
 
 def _prefix_hit(core):

@@ -327,7 +327,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'ray_tpu' or m.startswith('ray_tpu.')]\n"
-        "assert 'ray_tpu_torch.serve.decode_session' in sys.modules\n"
+        "for m in ('serve.decode_session', 'rl.ppo', 'rl.env', 'air',\n"
+        "          'train.rl', 'metrics', 'core.runtime_metrics',\n"
+        "          'util.tracing', 'util.fault_injection'):\n"
+        "    assert 'ray_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
