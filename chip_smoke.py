@@ -89,11 +89,28 @@ Phases, each fatal on failure:
                iteration, 3 timed ones (env-steps/s), one split into the
                rollout and the update, one profiled (device busy share,
                largest kernels, kernels a rollout step), peak memory, a
-               finite loss and episode_reward_mean; 0 flash launches.
+               finite loss and episode_reward_mean; 0 flash launches;
+ 10. offpolicy — one Rainbow iteration (double-Q, dueling, 3-step, PER,
+               51 atoms; 16 envs x 8 steps, buffer 512) on the card against
+               the CPU from the same weights, buffer and draws, full fp32
+               (the collect's rows, the first update's sampled slots, C51
+               projection, loss and gradients, the priorities, the state
+               after 4 updates); then on the card double DQN and Rainbow on
+               CartPole at the JAX package's DQN row (128 envs x 32 steps,
+               buffer 100,000, batch 256, 16 updates, learn_start 1024;
+               tpu_probe2.py:107-111), PG on CartPole at 128 x 128, TD3 and
+               SAC on Pendulum and R2D2 on MemoryCue at their configs'
+               defaults: warm iterations until the buffer holds learn_start
+               rows (asserted), 3 timed (env-steps/s), one split into the
+               collect and the updates, one profiled (busy share, largest
+               kernels), ops and kernels a collect step and an update, peak
+               memory, a finite nonzero loss, episode_reward_mean; 0 flash
+               launches.
 The kernel phases also hold and time each kernel at the MoE train shape and
 the ViT shapes.  Each phase prints its seconds.  Then one JSON line of the
 engine's numbers, one of the moe and vit phases' (with the phase seconds),
-one of the rl phase's, one of the kernels, and last the device line.  Exits non-zero without a
+one of the rl phase's, one of the offpolicy phase's, one of the kernels,
+and last the device line.  Exits non-zero without a
 result when no CUDA device is present.
 """
 
@@ -225,6 +242,41 @@ RL_GRAD_TOL, RL_MOMENT_TOL, RL_PARAM_STEPS, RL_LOSS_TOL = \
 # a sampled action may differ only where pi + noise had its top two this
 # close (fp32 logits of about 0.1 carry errors of about 1e-8)
 RL_TIE = 1e-5
+# the offpolicy phase: double DQN on CartPole at the JAX package's DQN row
+# (tpu_probe2.py:107-111, stage rl_dqn_tpu) and Rainbow at its sizes; PG on
+# CartPole at the PPO CartPole row's 128 x 128 (tpu_probe.py:219-220) with
+# PGConfig's own lr; TD3, SAC (td3.py:42-67, sac.py:38-55) and R2D2
+# (r2d2.py:96-114) at their configs' defaults.  The card = CPU check runs
+# one small Rainbow iteration in fp32.
+OFF_DQN = dict(num_envs=128, rollout_steps=32, buffer_capacity=100_000,
+               batch_size=256, num_updates=16, learn_start=1024, seed=0)
+OFF_PG = dict(num_envs=128, rollout_length=128, seed=0)
+OFF_TIMED_ITERS = 3
+OFF_PARITY = dict(num_envs=16, rollout_steps=8, buffer_capacity=512,
+                  batch_size=32, num_updates=4, learn_start=64, seed=0,
+                  eps_start=0.3)          # most actions greedy
+# card against CPU, full fp32.  The collect: actions, rewards, dones,
+# cursor and size exactly; observations within rtol 1e-5 / atol 1e-6, the
+# CPU tests' env-step bound (CartPole's sin and cos round differently in
+# the two libraries: 2.4e-7 apart after 8 steps in the first H100 run, a
+# large relative error where a velocity is near 0); an action may differ
+# only where the CPU's Q top two were within OFF_TIE.  The first update from
+# the same buffer and indices: projection, loss, gradients within 1e-5 of
+# a norm, the priorities it writes 1e-5 relative.  Later updates' samples
+# may part only where the uniform fell within OFF_SAMPLE_TIE of a slot's
+# edge in the cumulative priorities (float64 on both sides).
+OFF_PARITY_TOL = (1e-5, 1e-6)
+OFF_TIE = 1e-5
+OFF_FIRST_TOL = 1e-5
+OFF_SAMPLE_TIE = 1e-9
+# After the 4 updates, each side's Adam steps from params that differ by
+# rounding (the C51 projection's scatter-add sums in another order on the
+# card): the first H100 run measured the losses 1.33e-7 apart (relative),
+# the priorities 1.65e-6, the params 0.0011 of an Adam step (lr), the
+# moments 3.9e-6 of a norm, and the first update 3.1e-6 (projection) and
+# 2.6e-6 (gradients) of a norm.  The bounds are about ten times those.
+OFF_LATER_TOL = {"loss": 2e-6, "priorities": 2e-5, "params_in_steps": 0.01,
+                 "moments": 5e-5}
 HOST_CALLS = 200   # wrapper calls timed on the host clock, no sync inside
 
 
@@ -2051,6 +2103,340 @@ def phase_rl(card, ops):
     return launches, out
 
 
+# -- offpolicy: the replay-buffer family of RL ----------------------------------
+
+def off_copy(src, dst):
+    """``src``'s params, targets, Adam state, buffer, envs and env-step
+    count onto ``dst``, a twin on another device (copies)."""
+    from ray_tpu_torch.rl.policy import tree_map
+
+    def to(tree):
+        return tree_map(lambda x: x.to(dst.device, copy=True), tree)
+
+    dst.params, dst.target_params = to(src.params), to(src.target_params)
+    dst.opt_state = {"count": src.opt_state["count"],
+                     "mu": to(src.opt_state["mu"]),
+                     "nu": to(src.opt_state["nu"])}
+    dst.buffer = {k: (to(v) if torch.is_tensor(v) or isinstance(v, dict)
+                      else v) for k, v in src.buffer.items()}
+    dst.env_states, dst.obs = to(src.env_states), to(src.obs)
+    dst._total_env_steps = src._total_env_steps
+
+
+def off_written(algo, cursor, steps):
+    """The buffer rows a collect of ``steps`` steps wrote from ``cursor``,
+    as [T, N, ...] views, on the CPU."""
+    n, cap = algo.config.num_envs, algo.config.buffer_capacity
+    idx = (cursor + torch.arange(steps * n, device=algo.device)) % cap
+    return {k: v[idx].cpu().reshape((steps, n) + v.shape[1:])
+            for k, v in algo.buffer["data"].items()}
+
+
+def off_sample_margin(algo, u, idx):
+    """Per sample, how close ``u`` fell to an edge of its slot's share of
+    the cumulative priorities (relative to the total), on the CPU side:
+    the sampler's near-tie."""
+    n = max(algo.buffer["size"], 1)
+    w = (algo.buffer["priority"][:n].double() + 1e-6) ** algo.config.per_alpha
+    cdf = torch.cumsum(w, 0)
+    v = u.double() * cdf[-1]
+    hi = cdf[idx]
+    lo = torch.where(idx > 0, cdf[(idx - 1).clamp_min(0)], 0.0)
+    return torch.minimum(v - lo, hi - v) / cdf[-1]
+
+
+def off_priority_err(cpu, gpu):
+    """The largest relative difference of the filled slots' priorities
+    and of the running max, card against CPU."""
+    size = cpu.buffer["size"]
+    pairs = [(gpu.buffer["priority"][:size], cpu.buffer["priority"][:size]),
+             (gpu.buffer["max_priority"], cpu.buffer["max_priority"])]
+    return max(float(((g.cpu() - c).abs() / c).max()) for g, c in pairs)
+
+
+def rainbow_card_equals_cpu(card):
+    """One Rainbow iteration (double-Q, dueling, 3-step, PER, 51 atoms; 16
+    envs x 8 steps, buffer 512, batch 32, 4 updates, learn_start 64) on
+    the card and on the CPU from the same weights, buffer and draws, full
+    fp32.  The collect: rows, cursor and size as OFF_PARITY_TOL says, an
+    action differing only at a Q near-tie (then that env is compared up
+    to there).  The updates then start from the CPU's buffer on both
+    sides: the first update's sampled indices exactly, its C51
+    projection, TD loss and gradients within OFF_FIRST_TOL of a norm, the
+    priorities it writes within OFF_FIRST_TOL relative; each later
+    update's indices equal to the card's own sampler's but at a sampler
+    near-tie, and the state after the 4 updates within the measured
+    OFF_LATER_* bounds."""
+    from ray_tpu_torch.rl import CartPole, RainbowConfig
+    from ray_tpu_torch.rl.dqn import categorical_projection
+    from ray_tpu_torch.rl.exploration import anneal
+    from ray_tpu_torch.rl.learner import value_and_grad
+    from ray_tpu_torch.rl.policy import tree_leaves, tree_map
+
+    sides = {dev: RainbowConfig(env=CartPole, device=dev, **OFF_PARITY)
+             .build() for dev in ("cpu", "cuda")}
+    cpu, gpu = sides["cpu"], sides["cuda"]
+    cfg = cpu.config
+    n, steps, b = cfg.num_envs, cfg.rollout_steps, cfg.batch_size
+    cpu.collect()                           # pre-filled past learn_start
+    off_copy(cpu, gpu)
+    gen = torch.Generator().manual_seed(2)
+    draws = [{"uniform": torch.rand(n, generator=gen),
+              "random": torch.randint(2, (n,), generator=gen),
+              "reset": cpu.env.reset_draws(n, gen)} for _ in range(steps)]
+    us = [torch.rand(b, generator=gen) for _ in range(cfg.num_updates)]
+    cursor = cpu.buffer["cursor"]
+    errs = {}
+    cpu.collect(draws)
+    gpu.collect(tree_map(lambda x: x.cuda(), draws))
+    on_card("offpolicy card = CPU, the collect")
+    for what in ("cursor", "size"):
+        if gpu.buffer[what] != cpu.buffer[what]:
+            raise AssertionError(f"offpolicy: the card's buffer {what} "
+                                 f"differs from the CPU's")
+    crow, grow = (off_written(a, cursor, steps) for a in (cpu, gpu))
+    differs = grow["action"] != crow["action"]
+    first = torch.where(differs.any(0), differs.int().argmax(0),
+                        torch.full((n,), steps))
+    gap = 0.0
+    for env in torch.nonzero(first < steps).flatten().tolist():
+        t = int(first[env])
+        top = cpu.q.apply(cpu.params, crow["obs"][t, env:env + 1])[0].topk(2)
+        gap = max(gap, float(top.values[0] - top.values[1]))
+    if gap > OFF_TIE:
+        raise AssertionError(f"offpolicy: a card action differs from the "
+                             f"CPU's where the Q top two were {gap:.3e} "
+                             f"apart")
+    t = torch.arange(steps)[:, None]
+    seen, acted = t <= first, t < first
+    for key, mask in (("obs", seen), ("action", acted), ("reward", acted),
+                      ("done", acted), ("next_obs", acted)):
+        got, want = grow[key][mask], crow[key][mask]
+        errs[key] = float((got - want).abs().max()) if got.numel() else 0.0
+        if not (torch.equal(got, want) if key in ("action", "reward", "done")
+                else torch.allclose(got, want, rtol=OFF_PARITY_TOL[0],
+                                    atol=OFF_PARITY_TOL[1])):
+            raise AssertionError(f"offpolicy: the card's collected {key} "
+                                 f"differs from the CPU's by "
+                                 f"{errs[key]:.3e}")
+    obs_exact = all(torch.equal(grow[k][m], crow[k][m]) for k, m in
+                    (("obs", seen), ("next_obs", acted)))
+    # the updates, from the CPU's buffer on both sides, one at a time
+    off_copy(cpu, gpu)
+    for algo in (cpu, gpu):
+        algo.config = dataclasses.replace(cfg, num_updates=1)
+    beta = anneal(cpu._total_env_steps, cfg.per_beta, cfg.per_beta_final,
+                  cfg.eps_decay_steps)
+    sample = cpu._replay_ops[2]
+    losses, margin, n_tie = {"cpu": [], "cuda": []}, 1.0, 0
+    for k, u in enumerate(us):
+        _, ci, _ = sample(cpu.buffer, b, draw={"u": u})
+        _, gi, _ = sample(gpu.buffer, b, draw={"u": u.cuda()})
+        gi = gi.cpu()
+        if k == 0 and not torch.equal(gi, ci):
+            raise AssertionError("offpolicy: the card sampled other slots "
+                                 "than the CPU in the first update")
+        if not torch.equal(gi, ci):
+            off = gi != ci
+            m = float(off_sample_margin(cpu, u, ci)[off].max())
+            n_tie += int(off.sum())
+            if m > OFF_SAMPLE_TIE:
+                raise AssertionError(f"offpolicy: the card's sampler chose "
+                                     f"another slot {m:.3e} of the total "
+                                     f"away from an edge")
+        if k == 0:
+            parts = {}
+            for dev, algo in sides.items():
+                batch, idx, w = algo._replay_ops[2](
+                    algo.buffer, b, draw={"idx": ci.to(dev)}, beta_now=beta)
+                batch = algo._targets_batch(batch, idx)
+                proj = categorical_projection(algo.q, algo.params,
+                                              algo.target_params, batch,
+                                              cfg.double_q)
+                loss, ce, grads = value_and_grad(
+                    algo._td_loss, algo.params, algo.target_params, batch, w)
+                parts[dev] = tree_map(lambda x: x.cpu(), {
+                    "proj": proj, "loss": loss, "grads": grads})
+            on_card("offpolicy card = CPU, the first update's parts")
+            g, c = parts["cuda"], parts["cpu"]
+            errs["first"] = {
+                "proj": float((g["proj"] - c["proj"]).norm()
+                              / c["proj"].norm()),
+                "loss": float((g["loss"] - c["loss"]).abs()
+                              / c["loss"].abs()),
+                "grads": max(float((x - y).norm() / y.norm().clamp_min(
+                    1e-30)) for x, y in zip(g["grads"], c["grads"]))}
+        for dev, algo in sides.items():
+            out = algo.learn([{"idx": ci.to(dev)}])
+            losses[dev].append(out["td_loss"].cpu())
+        on_card(f"offpolicy card = CPU, update {k}")
+        if k == 0:
+            errs["first"]["priorities"] = off_priority_err(cpu, gpu)
+            if not max(errs["first"].values()) <= OFF_FIRST_TOL:
+                raise AssertionError(f"offpolicy: the card's first update "
+                                     f"differs from the CPU's: "
+                                     f"{errs['first']}")
+    later = {
+        "loss": max(float((g - c).abs() / c.abs())
+                    for g, c in zip(losses["cuda"], losses["cpu"])),
+        "priorities": off_priority_err(cpu, gpu),
+        "params_in_steps": max(
+            float((g.cpu() - c).abs().max()) / cfg.lr
+            for g, c in zip(tree_leaves(gpu.params),
+                            tree_leaves(cpu.params))),
+        "moments": max(float((g.cpu() - c).norm() / c.norm().clamp_min(
+            1e-30)) for what in ("mu", "nu") for g, c in zip(
+                tree_leaves(gpu.opt_state[what]),
+                tree_leaves(cpu.opt_state[what])))}
+    errs["later"] = later
+    for key, bound in OFF_LATER_TOL.items():
+        if not later[key] <= bound:
+            raise AssertionError(f"offpolicy: after {cfg.num_updates} "
+                                 f"updates the card's {key} differ from the "
+                                 f"CPU's by {later[key]:.3e} (bound "
+                                 f"{bound:.1e})")
+    n_div = int((first < steps).sum())
+    log(f"  card = CPU: Rainbow (double-Q, dueling, 3-step, PER, 51 atoms), "
+        f"{n} envs x {steps} steps, buffer {cfg.buffer_capacity}, batch {b}, "
+        f"fp32 (no TF32): actions, rewards, dones, cursor and size equal "
+        f"({n_div} envs compared up to a Q near-tie, top two {gap:.2e} "
+        f"apart); observations {'bitwise equal' if obs_exact else 'within'}"
+        f" (max |diff| {max(errs['obs'], errs['next_obs']):.3e}); first "
+        f"update: indices equal, projection {errs['first']['proj']:.2e}, "
+        f"loss {errs['first']['loss']:.2e}, gradients "
+        f"{errs['first']['grads']:.2e} of a norm, priorities "
+        f"{errs['first']['priorities']:.2e} relative; after "
+        f"{cfg.num_updates} updates ({n_tie} samples parted at a sampler "
+        f"near-tie): losses {later['loss']:.2e}, priorities "
+        f"{later['priorities']:.2e} relative, params "
+        f"{later['params_in_steps']:.4f} of an Adam step (lr), moments "
+        f"{later['moments']:.2e} of a norm [{card}]")
+    return {"envs": n, "steps": steps, "near_tie_envs": n_div,
+            "sampler_ties": n_tie, "observations_bitwise": obs_exact,
+            "max_err": errs}
+
+
+def off_run(card, what, cfg, learn_start):
+    """Warm iterations until the buffer holds ``learn_start`` rows (PG:
+    one), OFF_TIMED_ITERS timed ones, one split into the collect and the
+    updates (each synced), one profiled; → its readings."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    warm = 0
+    buffer = getattr(algo, "buffer", None)
+    while True:
+        res = algo.train()
+        warm += 1
+        if buffer is None or buffer["size"] >= learn_start:
+            break
+    warm_s = time.perf_counter() - t0
+    if buffer is not None and buffer["size"] < learn_start:
+        raise AssertionError(f"{what}: the buffer holds {buffer['size']} "
+                             f"rows, under learn_start {learn_start}")
+    walls = []
+    for _ in range(OFF_TIMED_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = algo.train()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    key = next(k for k in ("td_loss", "td_abs", "critic_loss", "pg_loss")
+               if k in res)
+    if not (np.isfinite(res[key]) and res[key] != 0):
+        raise AssertionError(f"{what}: {key} {res[key]} is not a finite, "
+                             f"nonzero loss: the updates did not run")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    collected = algo.collect()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if buffer is None:
+        algo.learn(collected)
+    else:
+        algo.learn()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    wall = float(np.median(walls))
+    steps = res["env_steps_this_iter"]
+    kernels_ms = profile_step(card, f"{what}: one profiled iteration",
+                              algo.train, wall, n=6)
+    t_len = getattr(cfg, "rollout_steps", None) or getattr(
+        cfg, "seq_len", None) or cfg.rollout_length
+    ops_c, kernels_c = host_ops(algo.collect)
+    if buffer is None:
+        batch = algo.collect()
+        ops_u, kernels_u = host_ops(lambda: algo.learn(batch))
+        n_upd = 1
+    else:
+        ops_u, kernels_u = host_ops(algo.learn)
+        n_upd = cfg.num_updates
+    out = {"env_steps_per_s": steps / wall * 1e3, "iteration_ms": walls,
+           "warm_iterations": warm, "warm_s": warm_s,
+           "collect_ms": (t1 - t0) * 1e3, "updates_ms": (t2 - t1) * 1e3,
+           key: res[key],
+           # None where no episode ended yet (Pendulum runs 200 steps)
+           "episode_reward_mean": (res["episode_reward_mean"] if np.isfinite(
+               res["episode_reward_mean"]) else None),
+           "device_busy_ms": sum(kernels_ms.values()) if kernels_ms
+           else None,
+           "ops_per_collect_step": ops_c / t_len,
+           "kernels_per_collect_step": kernels_c / t_len,
+           "ops_per_update": ops_u / n_upd,
+           "kernels_per_update": kernels_u / n_upd,
+           "largest_kernels_ms": dict(top_kernels(kernels_ms, 4)),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out["device_busy_share"] = (out["device_busy_ms"] / wall
+                                if kernels_ms else None)
+    log(f"  {what}: {out['env_steps_per_s']:.0f} env-steps/s (iterations "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms after {warm} warm, "
+        f"{warm_s:.2f} s); collect {out['collect_ms']:.1f} ms, updates "
+        f"{out['updates_ms']:.1f} ms (synced); "
+        f"{out['ops_per_collect_step']:.0f} ops / "
+        f"{out['kernels_per_collect_step']:.0f} kernels a collect step, "
+        f"{out['ops_per_update']:.0f} / {out['kernels_per_update']:.0f} an "
+        f"update; {key} {res[key]:.4g}; episode_reward_mean "
+        f"{res['episode_reward_mean']:.3f}; peak {out['peak_gib']:.3f} GiB "
+        f"[{card}]")
+    del algo, collected
+    gc.collect()
+    return out
+
+
+def phase_offpolicy(card, ops):
+    from ray_tpu_torch.rl import (CartPole, DQNConfig, MemoryCue, Pendulum,
+                                  PGConfig, R2D2Config, RainbowConfig,
+                                  SACConfig, TD3Config)
+
+    log("== offpolicy: DQN and Rainbow on CartPole at 128 x 32 with a 100k "
+        "buffer, PG on CartPole at 128 x 128, TD3 and SAC on Pendulum, R2D2 "
+        "on MemoryCue, at their configs' sizes; a Rainbow iteration against "
+        "the CPU")
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    with fp32_ieee():
+        out = {"card_equals_cpu": rainbow_card_equals_cpu(card)}
+        for kernel in kernels:
+            kernel.launches = 0
+        runs = (("dqn", "DQN (double), CartPole 128 x 32",
+                 DQNConfig(env=CartPole, **OFF_DQN)),
+                ("rainbow", "Rainbow, CartPole 128 x 32",
+                 RainbowConfig(env=CartPole, **OFF_DQN)),
+                ("pg", "PG, CartPole 128 x 128",
+                 PGConfig(env=CartPole, **OFF_PG)),
+                ("td3", "TD3, Pendulum 16 x 16",
+                 TD3Config(env=Pendulum, seed=0)),
+                ("sac", "SAC, Pendulum 16 x 16",
+                 SACConfig(env=Pendulum, seed=0)),
+                ("r2d2", "R2D2, MemoryCue 16 x 20",
+                 R2D2Config(env=MemoryCue, seed=0)))
+        for name, what, cfg in runs:
+            out[name] = off_run(card, what, cfg,
+                                getattr(cfg, "learn_start", 0))
+        launches = {k.__name__: k.launches for k in kernels}
+    if any(launches.values()):
+        raise AssertionError(f"the offpolicy path launched {launches}")
+    return launches, out
+
+
 def top_kernels(by_name, n):
     """The ``n`` kernels with the most device time, then the port's own
     (flash_*) kernels that are not among them."""
@@ -2172,6 +2558,8 @@ def main():
     moe_paths, moe = timed("moe", phase_moe, card, ops)
     vit_paths, vit = timed("vit", phase_vit, card, ops)
     by_path["rl"], rl = timed("rl", phase_rl, card, ops)
+    by_path["offpolicy"], offpolicy = timed("offpolicy", phase_offpolicy,
+                                            card, ops)
     by_path.update(moe_paths)
     by_path.update(vit_paths)
     log(f"  phase seconds: {json.dumps(seconds)}")
@@ -2184,6 +2572,8 @@ def main():
     print(json.dumps({"engine": engine}))
     print(json.dumps({"moe": moe, "vit": vit, "seconds": seconds}))
     print(json.dumps({"rl": rl, "seconds": seconds["rl"]}))
+    print(json.dumps({"offpolicy": offpolicy,
+                      "seconds": seconds["offpolicy"]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,11 +62,15 @@ def params_from_numpy(tree: Any, cfg: Union[TransformerConfig, ViTConfig],
 
 
 def policy_params_from_numpy(policy: Any, tree: Any) -> Any:
-    """A JAX policy's params as numpy arrays → the port's params for
-    ``policy`` (an `rl.MLPPolicy`, `LSTMPolicy` or `ConvPolicy`) on its
-    device.  Conv kernels go from the JAX package's HWIO to OIHW; nothing
-    else changes.  Raises if the tree's structure or shapes are not those
-    ``policy`` defines."""
+    """A JAX RL network's params as numpy arrays → the port's params for
+    ``policy`` on its device: an `rl.MLPPolicy`, `LSTMPolicy` or
+    `ConvPolicy`, a `QNetwork` (plain, dueling ``{"torso", "v", "a"}``,
+    C51), a `RecurrentQNetwork` (``{"torso", "lstm", "q"}``), or a `TD3` or
+    `SAC` algorithm (its actor / critic tree; SAC's ``log_alpha`` 0-d) —
+    anything with ``param_shapes()`` and ``device``.  Conv kernels go from
+    the JAX package's HWIO to OIHW; nothing else changes.  Raises if the
+    tree's structure or shapes are not those ``policy`` defines, naming
+    the path."""
 
     def walk(node, shapes, path, conv=False):
         if isinstance(shapes, dict):

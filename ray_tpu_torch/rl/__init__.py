@@ -1,7 +1,9 @@
 """Reinforcement learning of the port (counterpart of ``ray_tpu.rl``): the
 batched envs, the MLP / LSTM / conv actor-critic policies, connectors, the
-model catalog and the PPO family (PPO, A2C).  Envs, policies and the update
-run on the card unless given ``device="cpu"``."""
+model catalog, the PPO family (PPO, A2C, PG), exploration, the replay
+buffer on the card (`replay`, `learner`) and the off-policy algorithms
+(DQN, SimpleQ, Rainbow, R2D2, TD3, DDPG, SAC).  Envs, policies, buffers
+and updates run on the card unless given ``device="cpu"``."""
 
 from .algorithm import Algorithm, track_episode_returns  # noqa: F401
 from .catalog import build_policy, register_custom_model  # noqa: F401
@@ -14,6 +16,15 @@ from .connectors import (  # noqa: F401
     ObsNormalizer,
     UnsquashActions,
 )
+from .dqn import (  # noqa: F401
+    DQN,
+    DQNConfig,
+    QNetwork,
+    Rainbow,
+    RainbowConfig,
+    SimpleQ,
+    SimpleQConfig,
+)
 from .env import (  # noqa: F401
     CartPole,
     GridTarget,
@@ -22,6 +33,13 @@ from .env import (  # noqa: F401
     PixelPong,
     TorchEnv,
 )
+from .exploration import (  # noqa: F401
+    EpsilonGreedy,
+    GaussianActionNoise,
+    OrnsteinUhlenbeckNoise,
+    StochasticSampling,
+)
+from .pg import PG, PGConfig  # noqa: F401
 from .policy import (  # noqa: F401
     ConvPolicy,
     LSTMPolicy,
@@ -32,6 +50,7 @@ from .policy import (  # noqa: F401
 from .ppo import (  # noqa: F401
     PPO,
     A2CConfig,
+    Adam,
     ClippedAdam,
     PPOConfig,
     compute_gae,
@@ -40,3 +59,6 @@ from .ppo import (  # noqa: F401
     make_rollout_fn,
     make_update_fn,
 )
+from .r2d2 import R2D2, R2D2Config, RecurrentQNetwork  # noqa: F401
+from .sac import SAC, SACConfig  # noqa: F401
+from .td3 import DDPG, DDPGConfig, TD3, TD3Config  # noqa: F401

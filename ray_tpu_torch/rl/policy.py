@@ -45,6 +45,11 @@ def mlp_init(gen: torch.Generator, sizes: Sequence[int]
             for a, b in zip(sizes[:-1], sizes[1:])]
 
 
+def mlp_shapes(sizes: Sequence[int]) -> List[Dict[str, tuple]]:
+    """The shapes of an mlp_init stack."""
+    return [{"w": (a, b), "b": (b,)} for a, b in zip(sizes[:-1], sizes[1:])]
+
+
 def mlp_apply(params: List[Dict[str, torch.Tensor]], x: torch.Tensor,
               activation=torch.tanh) -> torch.Tensor:
     """Apply an mlp_init stack; activation on all but the output layer."""
@@ -60,6 +65,19 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_to_numpy(tree):
+    """A copy of a tree's tensors as numpy arrays (the updates change
+    params in place; a snapshot must not follow them)."""
+    return tree_map(lambda x: x.detach().to("cpu", copy=True).numpy(), tree)
+
+
+def tree_from_numpy(tree, device) -> Any:
+    """Arrays (from `tree_to_numpy`) copied into new tensors on
+    ``device``."""
+    return tree_map(lambda w: torch.tensor(np.asarray(w), device=device),
+                    tree)
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -89,8 +107,7 @@ class MLPPolicy:
     # -- params -------------------------------------------------------------
     def param_shapes(self) -> Params:
         sizes = (self.obs_size,) + self.hidden
-        return {"torso": [{"w": (a, b), "b": (b,)}
-                          for a, b in zip(sizes[:-1], sizes[1:])],
+        return {"torso": mlp_shapes(sizes),
                 "pi": {"w": (sizes[-1], self._n_out), "b": (self._n_out,)},
                 "vf": {"w": (sizes[-1], 1), "b": (1,)}}
 
@@ -186,14 +203,12 @@ class MLPPolicy:
     def get_weights(self, params: Params):
         """A copy of the params as numpy arrays (this package's layout): the
         update changes the params in place, a snapshot must not change."""
-        return tree_map(lambda x: x.detach().to("cpu", copy=True).numpy(),
-                        params)
+        return tree_to_numpy(params)
 
     def set_weights(self, params: Params, weights):
         """``weights`` (from `get_weights`) copied into new tensors on this
         policy's device."""
-        return tree_map(lambda w: torch.tensor(np.asarray(w),
-                                               device=self.device), weights)
+        return tree_from_numpy(weights, self.device)
 
 
 class LSTMPolicy(MLPPolicy):

@@ -36,6 +36,7 @@ from .algorithm import Algorithm
 from .catalog import build_policy
 from .connectors import ConnectorPipeline
 from .env import TorchEnv
+from .learner import value_and_grad
 from .policy import tree_leaves, tree_map
 
 
@@ -86,16 +87,17 @@ class A2CConfig(PPOConfig):
     clip_eps: float = 10.0        # effectively unclipped
 
 
-class ClippedAdam:
-    """``optax.chain(optax.clip_by_global_norm(max_norm),
-    optax.adam(lr))`` (optax's b1, b2, eps and eps_root 0) over a params
-    tree, updating params and state in place.  The state mirrors optax's:
-    ``count`` and the trees ``mu`` and ``nu``."""
+class Adam:
+    """``optax.adam(lr)`` (optax's b1, b2, eps and eps_root 0) over a
+    params tree, updating params and state in place.  The state mirrors
+    optax's: ``count`` and the trees ``mu`` and ``nu``.  The bias
+    corrections divide the moments before the square root, as optax does
+    (`torch.optim.Adam` orders them otherwise).  One multi-tensor op per
+    stage for the whole tree."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, max_norm: float, lr: float):
-        self.max_norm = max_norm
+    def __init__(self, lr: float):
         self.lr = lr
 
     def init(self, params) -> Dict[str, Any]:
@@ -107,19 +109,39 @@ class ClippedAdam:
                params) -> None:
         """One step; ``grads`` in `tree_leaves` order of ``params``."""
         b1, b2 = self.b1, self.b2
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        unclipped = norm < self.max_norm
+        grads = list(grads)
         state["count"] += 1
         c1 = 1 - b1 ** state["count"]
         c2 = 1 - b2 ** state["count"]
-        for p, g, mu, nu in zip(tree_leaves(params), grads,
-                                tree_leaves(state["mu"]),
-                                tree_leaves(state["nu"])):
-            g = torch.where(unclipped, g, g / norm * self.max_norm)
-            mu.mul_(b1).add_(g, alpha=1 - b1)
-            nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-            p.add_((mu / c1) / (torch.sqrt(nu / c2) + self.eps),
-                   alpha=-self.lr)
+        mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+        step = torch._foreach_div(mu, c1)
+        denom = torch._foreach_div(nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(step, denom)
+        torch._foreach_add_(tree_leaves(params), step, alpha=-self.lr)
+
+
+class ClippedAdam(Adam):
+    """``optax.chain(optax.clip_by_global_norm(max_norm),
+    optax.adam(lr))``: the gradients scaled by ``max_norm / norm`` where
+    their global norm reaches ``max_norm``, then `Adam`."""
+
+    def __init__(self, max_norm: float, lr: float):
+        super().__init__(lr)
+        self.max_norm = max_norm
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
+               params) -> None:
+        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        unclipped = norm < self.max_norm
+        super().update([torch.where(unclipped, g, g / norm * self.max_norm)
+                        for g in grads], state, params)
 
 
 def _make_elementwise_apply(pipe):
@@ -306,17 +328,9 @@ def _ppo_loss(cfg, logp, entropy, value, batch):
 def _sgd_step(optimizer: ClippedAdam, params, opt_state, loss_fn, *args):
     """One minibatch: the loss's gradients, then the optimizer's step on
     ``params`` in place.  → the loss's parts, detached."""
-    leaves = tree_leaves(params)
-    for p in leaves:
-        p.requires_grad_(True)
-    try:
-        loss, aux = loss_fn(params, *args)
-        grads = torch.autograd.grad(loss, leaves)
-    finally:
-        for p in leaves:
-            p.requires_grad_(False)
+    _, aux, grads = value_and_grad(loss_fn, params, *args)
     optimizer.update(grads, opt_state, params)
-    return {k: v.detach() for k, v in aux.items()}
+    return aux
 
 
 def _perm(perms, epoch: int, n: int, gen: torch.Generator) -> torch.Tensor:

@@ -550,3 +550,126 @@ def test_ppo_rollout_and_update_on_the_card_match_the_cpu(cuda):
         assert float((g - c).norm() / c.norm()) <= 1e-4
     for g, c in zip(tree_leaves(gparams), tree_leaves(cparams)):
         assert float((g - c).abs().max()) <= 0.5 * cfg.lr
+
+
+def _copy_learner(src, dst):
+    """``src``'s params, targets, Adam state, buffer, envs and env-step
+    count onto ``dst``, its twin on another device."""
+    from ray_tpu_torch.rl.policy import tree_map
+
+    def to(tree):
+        return tree_map(lambda x: x.to(dst.device, copy=True), tree)
+
+    dst.params, dst.target_params = to(src.params), to(src.target_params)
+    dst.opt_state = {"count": src.opt_state["count"],
+                     "mu": to(src.opt_state["mu"]),
+                     "nu": to(src.opt_state["nu"])}
+    dst.buffer = {k: (to(v) if torch.is_tensor(v) or isinstance(v, dict)
+                      else v) for k, v in src.buffer.items()}
+    dst.env_states, dst.obs = to(src.env_states), to(src.obs)
+    dst._total_env_steps = src._total_env_steps
+
+
+def test_rainbow_iteration_on_the_card_matches_the_cpu(cuda):
+    """One Rainbow iteration (double-Q, dueling, 3-step, PER, 51 atoms; 8
+    envs x 4 steps, buffer 128, batch 16, 2 updates) from the same weights,
+    buffer and draws, in full fp32 (chip_smoke.py's offpolicy check and
+    bounds, smaller): actions, rewards, dones, cursor and size equal, but
+    for an env whose action is a Q near-tie (top two within 1e-5; compared
+    up to there), observations within rtol 1e-5 / atol 1e-6; then, from
+    the CPU's buffer on both sides, the first update's sampled slots
+    equal, its loss and gradients within 1e-5 of a norm, and after both
+    updates the params within 0.01 of an Adam step (lr)."""
+    import dataclasses
+
+    from ray_tpu_torch.rl import CartPole, RainbowConfig
+    from ray_tpu_torch.rl.learner import value_and_grad
+    from ray_tpu_torch.rl.policy import tree_leaves, tree_map
+
+    kw = dict(num_envs=8, rollout_steps=4, buffer_capacity=128,
+              batch_size=16, num_updates=2, learn_start=16, eps_start=0.3,
+              seed=0)
+    n, steps, b = 8, 4, 16
+    cpu = RainbowConfig(env=CartPole, device="cpu", **kw).build()
+    gpu = RainbowConfig(env=CartPole, device=cuda, **kw).build()
+    saved = torch.backends.cuda.matmul.fp32_precision
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    try:
+        cpu.collect()                          # past learn_start
+        _copy_learner(cpu, gpu)
+        gen = torch.Generator().manual_seed(0)
+        draws = [{"uniform": torch.rand(n, generator=gen),
+                  "random": torch.randint(2, (n,), generator=gen),
+                  "reset": cpu.env.reset_draws(n, gen)}
+                 for _ in range(steps)]
+        us = [torch.rand(b, generator=gen) for _ in range(2)]
+        cursor = cpu.buffer["cursor"]
+        cpu.collect(draws)
+        gpu.collect(tree_map(lambda x: x.to(cuda), draws))
+        assert (gpu.buffer["cursor"], gpu.buffer["size"]) == \
+            (cpu.buffer["cursor"], cpu.buffer["size"])
+        idx = (cursor + torch.arange(steps * n)) % kw["buffer_capacity"]
+        rows = [{k: v[idx.to(v.device)].cpu().reshape(
+            (steps, n) + v.shape[1:]) for k, v in a.buffer["data"].items()}
+            for a in (cpu, gpu)]
+        differs = rows[1]["action"] != rows[0]["action"]
+        first = torch.where(differs.any(0), differs.int().argmax(0),
+                            torch.full((n,), steps))
+        for env in torch.nonzero(first < steps).flatten().tolist():
+            q = cpu.q.apply(cpu.params,
+                            rows[0]["obs"][int(first[env]), env:env + 1])
+            top = q[0].topk(2).values
+            assert float(top[0] - top[1]) <= 1e-5, env
+        t = torch.arange(steps)[:, None]
+        for k, mask in (("obs", t <= first), ("action", t < first),
+                        ("reward", t < first), ("done", t < first)):
+            got, want = rows[1][k][mask], rows[0][k][mask]
+            if k == "obs":
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            else:
+                assert torch.equal(got, want), k
+        _copy_learner(cpu, gpu)
+        sample = cpu._replay_ops[2]
+        for k, u in enumerate(us):
+            _, ci, _ = sample(cpu.buffer, b, draw={"u": u})
+            _, gi, _ = sample(gpu.buffer, b, draw={"u": u.to(cuda)})
+            if k == 0:
+                assert torch.equal(gi.cpu(), ci)
+                parts = []
+                for algo, dev in ((cpu, "cpu"), (gpu, cuda)):
+                    batch, i, w = sample(algo.buffer, b,
+                                         draw={"idx": ci.to(dev)})
+                    batch = algo._targets_batch(batch, i)
+                    loss, _, grads = value_and_grad(
+                        algo._td_loss, algo.params, algo.target_params,
+                        batch, w)
+                    parts.append((loss.cpu(), [g.cpu() for g in grads]))
+                (cl, cg), (gl, gg) = parts
+                assert float((gl - cl).abs() / cl.abs()) <= 1e-5
+                for g, c in zip(gg, cg):
+                    assert float((g - c).norm() / c.norm()) <= 1e-5
+            for algo, dev in ((cpu, "cpu"), (gpu, cuda)):
+                algo.config = dataclasses.replace(algo.config,
+                                                  num_updates=1)
+                algo.learn([{"idx": ci.to(dev)}])
+    finally:
+        torch.backends.cuda.matmul.fp32_precision = saved
+    for g, c in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        assert float((g.cpu() - c).abs().max()) <= 0.01 * cpu.config.lr
+
+
+def test_dqn_at_the_jax_packages_row_trains_on_the_card(cuda):
+    """Double DQN on CartPole at the JAX package's DQN row (128 envs x 32
+    steps, buffer 100,000, batch 256, 16 updates, learn_start 1024;
+    tpu_probe2.py:107-111): the first iteration's 4,096 rows pass the
+    gate, so its updates run on the card with a finite, nonzero loss."""
+    from ray_tpu_torch.rl import CartPole, DQNConfig
+
+    algo = DQNConfig(env=CartPole, num_envs=128, rollout_steps=32,
+                     buffer_capacity=100_000, batch_size=256,
+                     num_updates=16, learn_start=1024, seed=0).build()
+    res = algo.train()
+    assert algo.buffer["size"] == 4096 >= algo.config.learn_start
+    assert algo.buffer["data"]["obs"].is_cuda
+    assert np.isfinite(res["td_loss"]) and res["td_loss"] != 0
+    assert algo.opt_state["count"] == 16

@@ -329,7 +329,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         " or m == 'ray_tpu' or m.startswith('ray_tpu.')]\n"
         "for m in ('serve.decode_session', 'rl.ppo', 'rl.env', 'air',\n"
         "          'train.rl', 'metrics', 'core.runtime_metrics',\n"
-        "          'util.tracing', 'util.fault_injection'):\n"
+        "          'util.tracing', 'util.fault_injection', 'rl.pg',\n"
+        "          'rl.exploration', 'rl.replay', 'rl.dqn', 'rl.learner',\n"
+        "          'rl.r2d2', 'rl.td3', 'rl.sac'):\n"
         "    assert 'ray_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
