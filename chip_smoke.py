@@ -105,13 +105,36 @@ Phases, each fatal on failure:
                collect and the updates, one profiled (busy share, largest
                kernels), ops and kernels a collect step and an update, peak
                memory, a finite nonzero loss, episode_reward_mean; 0 flash
+               launches;
+ 11. rl_breadth — full fp32: an IMPALA iteration (CartPole 16 x 8) on
+               the card against the CPU from the same weights and draws
+               (actions, rewards, dones equal but at a printed near-tie;
+               the card's mean rho 1 within 1e-5; V-trace vs and pg_adv,
+               loss and clipped gradients within a share of a norm), a
+               QMIX iteration past the gate (SpreadLine(4), 8 x 8, buffer
+               512: actions, the first update's slots, Q_tot, loss and
+               gradients, 4 updates within the measured drift) and 512
+               LinTS steps (arms equal but at a printed near-tie, A and
+               b); then at the configs' own defaults IMPALA and APPO on
+               CartPole 64 x 64, IndependentPPO on SpreadLine(4) 32 x 64
+               (and one iteration with shared parameters, whose copies
+               must part), QMIX on SpreadLine(4) and MADDPG on
+               SpreadLineContinuous(3) past learn_start, an epoch each of
+               BC, MARWIL, CQL and CRR over a 20,000-row CartPole dataset
+               of a scripted expert collected on the card, one importance-
+               sampling estimate, LinUCB and LinTS at 512 steps: warm
+               iterations, 3 timed (env-steps, rows or steps a second),
+               the collect / update split synced, one profiled (busy
+               share, largest kernels), ops and kernels a step, an update,
+               an epoch or a minibatch, syncs an iteration, peak memory, a
+               finite nonzero loss (bandits: regret falling); 0 flash
                launches.
 The kernel phases also hold and time each kernel at the MoE train shape and
 the ViT shapes.  Each phase prints its seconds.  Then one JSON line of the
 engine's numbers, one of the moe and vit phases' (with the phase seconds),
-one of the rl phase's, one of the offpolicy phase's, one of the kernels,
-and last the device line.  Exits non-zero without a
-result when no CUDA device is present.
+one of the rl phase's, one of the offpolicy phase's, one of the rl_breadth
+phase's, one of the kernels, and last the device line.  Exits non-zero
+without a result when no CUDA device is present.
 """
 
 import dataclasses
@@ -277,6 +300,39 @@ OFF_SAMPLE_TIE = 1e-9
 # 2.6e-6 (gradients) of a norm.  The bounds are about ten times those.
 OFF_LATER_TOL = {"loss": 2e-6, "priorities": 2e-5, "params_in_steps": 0.01,
                  "moments": 5e-5}
+# the rl_breadth phase, each run at its config's own defaults (nothing
+# cut): IMPALA and APPO on CartPole at 64 envs x 64 steps, (64, 64)
+# (impala.py:41-58), IndependentPPO on SpreadLine(4) at 32 x 64, 2 epochs
+# (multi_agent.py:107-120), QMIX on SpreadLine(4) at 16 x 32, buffer
+# 50,000, batch 128, 16 updates, learn_start 1,000 (qmix.py:64-83),
+# MADDPG on SpreadLineContinuous(3) at 16 x 16, buffer 100,000, batch 256,
+# 16 updates (maddpg.py:85-101), a 20,000-row CartPole dataset of
+# tests/test_offline_rl.py's scripted expert at 32 envs with an epoch of
+# BC, MARWIL, CQL and CRR at batch 256 (offline.py), LinUCB and LinTS at
+# 512 steps an iteration on LinearContextBandit(d 8, K 4) (bandit.py).
+BREADTH_TIMED_ITERS = 3
+BREADTH_AGENTS = 4
+BREADTH_DATASET_ROWS, BREADTH_DATASET_ENVS = 20_000, 32
+BREADTH_IMPALA_PARITY = dict(num_envs=16, rollout_length=8, seed=0)
+BREADTH_QMIX_PARITY = dict(num_envs=8, rollout_steps=8,
+                           buffer_capacity=512, batch_size=32,
+                           num_updates=4, learn_start=64, eps_start=0.3,
+                           seed=0)
+# card against CPU, full fp32.  The first H100 run measured: IMPALA's
+# observations 1.8e-7 apart (max |diff|), log-probs 6.0e-8, the card's mean
+# rho exactly 1, and from one batch vs 8.3e-8, pg_adv 1.2e-7, the loss 0,
+# the gradients (clipped or not) 4.0e-7 of a norm; QMIX's rewards 4.8e-7
+# apart, the first update's Q_tot 1.7e-7, loss 1.0e-7, gradients 4.9e-7 of
+# a norm, after 4 updates the loss 1.1e-7 relative and the params 6.0e-5 of
+# an Adam step (lr); LinTS's arms equal over 512 steps, A and b 7.2e-8 of
+# their largest entry.  The bounds are about ten times those (rho: 1e-5,
+# the bound the phase was specified with).  A LinTS arm may part only
+# where the CPU's Thompson payoffs had their top two within BREADTH_TIE of
+# the largest.
+BREADTH_RHO = 1e-5        # |mean rho - 1| in inline mode
+BREADTH_TOL = {"impala": 5e-6, "qmix_first": 5e-6, "qmix_loss": 2e-6,
+               "qmix_params_in_steps": 1e-3, "lints": 1e-6}
+BREADTH_TIE = {"lints": 1e-5}
 HOST_CALLS = 200   # wrapper calls timed on the host clock, no sync inside
 
 
@@ -2437,6 +2493,531 @@ def phase_offpolicy(card, ops):
     return launches, out
 
 
+# -- rl_breadth: IMPALA / APPO, multi-agent, offline RL, bandits -----------
+
+def breadth_copy_learner(src, dst):
+    """``src``'s params (and, where it has them, targets, Adam state,
+    buffer, envs and env-step count) onto ``dst``, a twin on another
+    device (copies)."""
+    from ray_tpu_torch.rl.policy import tree_map
+
+    if hasattr(src, "buffer"):
+        off_copy(src, dst)
+        return
+    dst.params = tree_map(lambda x: x.to(dst.device, copy=True), src.params)
+    dst.opt_state = dst.optimizer.init(dst.params)
+
+
+def share_of_norm(got, want):
+    """The largest ``|got - want| / |want|`` over matching tensors (norms),
+    ``got`` on the card."""
+    return max(float((g.cpu().double() - w.double()).norm()
+                     / w.double().norm().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def impala_card_equals_cpu(card):
+    """An IMPALA iteration (CartPole, 16 envs x 8 steps) on the card and on
+    the CPU from the same weights and draws, full fp32: actions, rewards,
+    dones equal (an env whose sampled action is a near-tie of pi + noise,
+    top two under RL_TIE, is compared up to there), observations and
+    behaviour log-probs within the env-step bound; the card's own mean rho
+    1 within BREADTH_RHO; then from the CPU's batch on both sides V-trace's
+    vs and pg_adv, the loss and the gradients before and after the
+    global-norm clip within BREADTH_TOL["impala"] of a norm."""
+    from ray_tpu_torch.rl import CartPole, ImpalaConfig
+    from ray_tpu_torch.rl.learner import value_and_grad
+    from ray_tpu_torch.rl.policy import tree_map
+    from ray_tpu_torch.rl.ppo import clip_by_global_norm
+
+    sides = {dev: ImpalaConfig(env=CartPole, device=dev,
+                               **BREADTH_IMPALA_PARITY).build()
+             for dev in ("cpu", "cuda")}
+    cpu, gpu = sides["cpu"], sides["cuda"]
+    n, steps = cpu.config.num_envs, cpu.config.rollout_length
+    breadth_copy_learner(cpu, gpu)
+    gen = torch.Generator().manual_seed(3)
+    first = cpu.env.reset_draws(n, gen)
+    draws = [{"noise": cpu.policy.draw_noise(n, gen),
+              "reset": cpu.env.reset_draws(n, gen)} for _ in range(steps)]
+    batches = {}
+    for dev, algo in sides.items():
+        def to(tree):
+            return tree_map(lambda x: x.to(dev), tree)
+        algo.env_states, algo.obs = algo.env.reset_given(to(first))
+        batches[dev] = algo.collect(to(draws))
+    on_card("rl_breadth IMPALA card = CPU, the rollout")
+    cb = batches["cpu"]
+    gb = tree_map(lambda x: x.cpu(), batches["cuda"])
+    diverged, gap = rl_diverged(cpu.policy, cpu.params, cb, draws,
+                                gb["action"])
+    if gap > RL_TIE:
+        raise AssertionError(f"rl_breadth: an IMPALA card action differs "
+                             f"where the top two were {gap:.3e} apart")
+    t = torch.arange(steps)[:, None]
+    seen, acted = t <= diverged, t < diverged
+    errs = {}
+    for key, mask in (("obs", seen), ("action", acted), ("reward", acted),
+                      ("done", acted), ("logp", seen)):
+        got, want = gb[key][mask], cb[key][mask]
+        if key in ("action", "reward", "done"):
+            if not torch.equal(got, want):
+                raise AssertionError(f"rl_breadth: the card's IMPALA "
+                                     f"{key} differs from the CPU's")
+            continue
+        errs[key] = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=OFF_PARITY_TOL[0],
+                              atol=OFF_PARITY_TOL[1]):
+            raise AssertionError(f"rl_breadth: the card's IMPALA {key} "
+                                 f"differs by {errs[key]:.3e}")
+    _, own, _ = value_and_grad(gpu.loss, gpu.params, batches["cuda"])
+    errs["rho"] = abs(float(own["mean_rho"]) - 1.0)
+    if errs["rho"] > BREADTH_RHO:
+        raise AssertionError(f"rl_breadth: the card's inline mean rho is "
+                             f"{errs['rho']:.3e} from 1")
+    parts = {}
+    for dev, algo in sides.items():
+        total, aux, grads = value_and_grad(
+            algo.loss, algo.params, tree_map(lambda x: x.to(dev), cb))
+        parts[dev] = {"loss": [total], "vs": [aux["vs"]],
+                      "pg_adv": [aux["pg_adv"]], "grads": grads,
+                      "clipped": clip_by_global_norm(
+                          grads, algo.config.max_grad_norm)}
+    on_card("rl_breadth IMPALA card = CPU, the loss and gradients")
+    for key, want in parts["cpu"].items():
+        errs[key] = share_of_norm(parts["cuda"][key], want)
+    worst = max(errs[k] for k in parts["cpu"])
+    if worst > BREADTH_TOL["impala"]:
+        raise AssertionError(f"rl_breadth: the card's IMPALA loss parts "
+                             f"differ from the CPU's: {errs}")
+    n_div = int((diverged < steps).sum())
+    log(f"  card = CPU: IMPALA, CartPole {n} envs x {steps} steps, fp32 (no "
+        f"TF32): actions, rewards, dones equal ({n_div} envs compared up to "
+        f"a near-tie action, top two {gap:.2e} apart), observations max "
+        f"|diff| {errs['obs']:.3e}, log-probs {errs['logp']:.3e}; the "
+        f"card's mean rho 1 + {errs['rho']:.2e}; from one batch: vs "
+        f"{errs['vs']:.2e}, pg_adv {errs['pg_adv']:.2e}, loss "
+        f"{errs['loss']:.2e}, gradients {errs['grads']:.2e}, clipped "
+        f"{errs['clipped']:.2e} of a norm [{card}]")
+    return {"envs": n, "steps": steps, "near_tie_envs": n_div,
+            "max_err": errs}
+
+
+def qmix_card_equals_cpu(card):
+    """A QMIX iteration (SpreadLine(4), 8 envs x 8 steps, buffer 512,
+    past the gate) on the card and on the CPU from the same weights,
+    buffer and draws, full fp32: actions equal but where the CPU's Q top
+    two of that agent were within OFF_TIE (that env compared up to
+    there), the written rows within the env-step bound; then from the
+    CPU's buffer on both sides and the same sampled slots the first
+    update's batch, Q_tot, loss and gradients within
+    BREADTH_TOL["qmix_first"] of a norm, and after the 4 updates the loss
+    and params within BREADTH_TOL's measured drift."""
+    from ray_tpu_torch.rl import QMIXConfig, SpreadLine, mlp_apply, replay
+    from ray_tpu_torch.rl.learner import value_and_grad
+    from ray_tpu_torch.rl.policy import tree_leaves, tree_map
+
+    sides = {dev: QMIXConfig(env=SpreadLine, device=dev,
+                             **BREADTH_QMIX_PARITY).build()
+             for dev in ("cpu", "cuda")}
+    cpu, gpu = sides["cpu"], sides["cuda"]
+    cfg = cpu.config
+    n, steps, b = cfg.num_envs, cfg.rollout_steps, cfg.batch_size
+    n_agents, n_act = cpu.n_agents, cpu.env.action_size
+    cpu.collect()                           # the buffer at learn_start
+    cpu._total_env_steps = n * steps
+    breadth_copy_learner(cpu, gpu)
+    gen = torch.Generator().manual_seed(5)
+    draws = [{"uniform": torch.rand(n, n_agents, generator=gen),
+              "random": torch.randint(n_act, (n, n_agents), generator=gen),
+              "reset": cpu.env.reset_draws(n, gen)} for _ in range(steps)]
+    cursor = cpu.buffer["cursor"]
+    cpu.collect(draws)
+    gpu.collect(tree_map(lambda x: x.cuda(), draws))
+    on_card("rl_breadth QMIX card = CPU, the collect")
+    crow, grow = (off_written(a, cursor, steps) for a in (cpu, gpu))
+    differs = (grow["action"] != crow["action"]).any(-1)      # [T, n]
+    first = torch.where(differs.any(0), differs.int().argmax(0),
+                        torch.full((n,), steps))
+    gap = 0.0
+    for env in torch.nonzero(first < steps).flatten().tolist():
+        t = int(first[env])
+        top = mlp_apply(cpu.params["q"],
+                        crow["obs"][t, env]).topk(2).values      # [N, 2]
+        agents = grow["action"][t, env] != crow["action"][t, env]
+        gap = max(gap, float((top[:, 0] - top[:, 1])[agents].max()))
+    if gap > OFF_TIE:
+        raise AssertionError(f"rl_breadth: a QMIX card action differs "
+                             f"where the Q top two were {gap:.3e} apart")
+    t = torch.arange(steps)[:, None]
+    seen, acted = t <= first, t < first
+    errs = {}
+    for key, mask in (("obs", seen), ("state", seen), ("action", acted),
+                      ("reward", acted), ("done", acted),
+                      ("next_obs", acted)):
+        got, want = grow[key][mask], crow[key][mask]
+        errs[key] = float((got - want).abs().float().max()) \
+            if got.numel() else 0.0
+        ok = (torch.equal(got, want) if key in ("action", "done")
+              else torch.allclose(got, want, rtol=OFF_PARITY_TOL[0],
+                                  atol=OFF_PARITY_TOL[1]))
+        if not ok:
+            raise AssertionError(f"rl_breadth: the card's QMIX {key} "
+                                 f"differs by {errs[key]:.3e}")
+    # the updates, from the CPU's buffer on both sides
+    breadth_copy_learner(cpu, gpu)
+    size = cpu.buffer["size"]
+    idx = [torch.randint(size, (b,), generator=gen)
+           for _ in range(cfg.num_updates)]
+    parts = {}
+    for dev, algo in sides.items():
+        batch, got_idx = replay.sample(algo.buffer, b,
+                                       draw={"idx": idx[0].to(dev)})
+        loss, _, grads = value_and_grad(
+            lambda p, bt: (algo.td_loss(p, algo.target_params, bt), None),
+            algo.params, batch)
+        parts[dev] = {"batch": [batch[k] for k in sorted(batch)],
+                      "idx": got_idx, "q_tot": [algo.q_tot(algo.params,
+                                                           batch)],
+                      "loss": [loss], "grads": grads}
+    on_card("rl_breadth QMIX card = CPU, the first update's parts")
+    if not torch.equal(parts["cuda"]["idx"].cpu(), parts["cpu"]["idx"]):
+        raise AssertionError("rl_breadth: the card's QMIX sampled other "
+                             "slots")
+    first_errs = {k: share_of_norm(parts["cuda"][k], parts["cpu"][k])
+                  for k in ("batch", "q_tot", "loss", "grads")}
+    errs["first"] = first_errs
+    if max(first_errs.values()) > BREADTH_TOL["qmix_first"]:
+        raise AssertionError(f"rl_breadth: the card's first QMIX update "
+                             f"differs from the CPU's: {first_errs}")
+    losses = {dev: algo.learn([{"idx": i.to(dev)} for i in idx])
+              for dev, algo in sides.items()}
+    on_card("rl_breadth QMIX card = CPU, the updates")
+    later = {"loss": float((losses["cuda"].cpu() - losses["cpu"]).abs()
+                           / losses["cpu"].abs()),
+             "params_in_steps": max(
+                 float((g.cpu() - c).abs().max()) / cfg.lr
+                 for g, c in zip(tree_leaves(gpu.params),
+                                 tree_leaves(cpu.params)))}
+    errs["later"] = later
+    if later["loss"] > BREADTH_TOL["qmix_loss"] or \
+            later["params_in_steps"] > BREADTH_TOL["qmix_params_in_steps"]:
+        raise AssertionError(f"rl_breadth: after {cfg.num_updates} QMIX "
+                             f"updates the card differs from the CPU: "
+                             f"{later}")
+    n_div = int((first < steps).sum())
+    log(f"  card = CPU: QMIX, SpreadLine({n_agents}) {n} envs x {steps} "
+        f"steps, buffer {cfg.buffer_capacity}, batch {b}, fp32: actions "
+        f"equal ({n_div} envs compared up to a Q near-tie, top two "
+        f"{gap:.2e} apart), rows max |diff| obs {errs['obs']:.2e}, reward "
+        f"{errs['reward']:.2e}; first update: slots equal, batch "
+        f"{first_errs['batch']:.2e}, Q_tot {first_errs['q_tot']:.2e}, loss "
+        f"{first_errs['loss']:.2e}, gradients {first_errs['grads']:.2e} of "
+        f"a norm; after {cfg.num_updates} updates loss {later['loss']:.2e} "
+        f"relative, params {later['params_in_steps']:.4f} of an Adam step "
+        f"(lr) [{card}]")
+    return {"envs": n, "steps": steps, "near_tie_envs": n_div,
+            "max_err": errs}
+
+
+def lints_payoff_gap(algo, draws, t):
+    """The CPU's top-two gap of the Thompson payoffs at step ``t`` of
+    ``draws``, from the posterior after steps ``0..t-1`` (relative to the
+    largest payoff's magnitude); → (gap, the CPU algorithm replayed to
+    step ``t``)."""
+    replay_algo = dataclasses.replace(algo.config, steps_per_iter=t).build()
+    replay_algo.run({k: v[:t] for k, v in draws.items()})
+    A, b = replay_algo.A, replay_algo.b
+    x = replay_algo.env.context(draws["context"][t])
+    theta = torch.linalg.solve(A, b[..., None])
+    L = torch.linalg.cholesky(A)
+    pert = torch.linalg.solve_triangular(L.mT, draws["z"][t][..., None],
+                                         upper=True)
+    pay = (theta + algo.config.sigma * pert)[..., 0] @ x
+    top = pay.topk(2).values
+    return float((top[0] - top[1]) / top[0].abs().clamp_min(1e-30)), \
+        replay_algo
+
+
+def lints_card_equals_cpu(card):
+    """LinTS, 512 steps on the card and on the CPU from the same bandit
+    weights and draws, full fp32: the arms equal, but where the CPU's
+    Thompson payoffs had their top two within BREADTH_TIE["lints"]
+    (printed; both sides are then compared up to that step), and A and b
+    within BREADTH_TOL["lints"] relative to their largest entry."""
+    from ray_tpu_torch.rl import LinearContextBandit, LinTSConfig
+    from ray_tpu_torch.rl.policy import tree_map
+
+    weights = LinearContextBandit(device="cpu").weights.numpy()
+    cfg = LinTSConfig(env=lambda device: LinearContextBandit(
+        weights=weights, device=device), seed=0)
+    sides = {dev: dataclasses.replace(cfg, device=dev).build()
+             for dev in ("cpu", "cuda")}
+    draws = sides["cpu"].draw()
+    arms = {}
+    for dev, algo in sides.items():
+        arms[dev] = algo.run(tree_map(lambda x: x.to(dev), draws))[2].cpu()
+    on_card("rl_breadth LinTS card = CPU")
+    differs = torch.nonzero(arms["cuda"] != arms["cpu"]).flatten()
+    steps, gap, cpu, gpu = cfg.steps_per_iter, None, sides["cpu"], \
+        sides["cuda"]
+    if differs.numel():
+        steps = int(differs[0])
+        gap, cpu = lints_payoff_gap(sides["cpu"], draws, steps)
+        if gap > BREADTH_TIE["lints"]:
+            raise AssertionError(f"rl_breadth: a LinTS card arm differs at "
+                                 f"step {steps}, where the payoffs' top two "
+                                 f"were {gap:.3e} apart")
+        gpu = dataclasses.replace(cfg, device="cuda",
+                                  steps_per_iter=steps).build()
+        gpu.run(tree_map(lambda x: x[:steps].cuda(), draws))
+        log(f"  LinTS: the card's arm parts from the CPU's at step {steps} "
+            f"of {cfg.steps_per_iter}, a near-tie (payoffs' top two "
+            f"{gap:.2e} apart, relative); compared up to there")
+    errs = {k: float((getattr(gpu, k).cpu() - getattr(cpu, k)).abs().max()
+                     / getattr(cpu, k).abs().max())
+            for k in ("A", "b")}
+    if max(errs.values()) > BREADTH_TOL["lints"]:
+        raise AssertionError(f"rl_breadth: the card's LinTS posteriors "
+                             f"differ from the CPU's: {errs}")
+    log(f"  card = CPU: LinTS (d {weights.shape[1]}, K {weights.shape[0]}), "
+        f"{cfg.steps_per_iter} steps, fp32: arms equal over {steps} steps "
+        f"({'no near-tie' if gap is None else f'then a near-tie {gap:.2e}'}"
+        f"); A {errs['A']:.2e}, b {errs['b']:.2e} of the largest entry "
+        f"[{card}]")
+    return {"steps": cfg.steps_per_iter, "compared_steps": steps,
+            "near_tie_gap": gap, "max_err": errs}
+
+
+def count_syncs(fn):
+    """Host-device synchronizations in one call of ``fn``, as CUDA's sync
+    debug mode reports them (one warning each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def breadth_run(card, what, make, *, steps, unit, loss_key, warm_until=None,
+                split=(), ops=()):
+    """Warm iterations (one, or until ``warm_until(algo)``),
+    BREADTH_TIMED_ITERS timed ones (synced by the iteration's read of its
+    metrics), the ``split`` parts of one iteration each synced, one
+    profiled iteration, the host's ops and kernels (``ops``: (name, fn,
+    per) → per call / per), the syncs of one iteration and peak memory;
+    the loss named ``loss_key`` must be finite and nonzero.  ``steps``
+    units (env steps, rows, bandit steps) an iteration.  ``ops`` entries
+    are (name, prepare, per): ``prepare(algo)`` makes, outside the count,
+    the call that is counted."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    algo = make()
+    warm, history = 0, []
+    while True:
+        res = algo.train()
+        history.append(res)
+        warm += 1
+        if warm_until is None or warm_until(algo):
+            break
+    warm_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(BREADTH_TIMED_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = algo.train()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        history.append(res)
+    loss = res[loss_key]
+    loss = float(np.mean(loss)) if isinstance(loss, list) else loss
+    if not (np.isfinite(loss) and loss != 0):
+        raise AssertionError(f"{what}: {loss_key} {res[loss_key]} is not a "
+                             f"finite, nonzero loss")
+    parts, prev = {}, None
+    for name, fn in split:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prev = fn(algo, prev)
+        torch.cuda.synchronize()
+        parts[f"{name}_ms"] = (time.perf_counter() - t1) * 1e3
+    wall = float(np.median(walls))
+    kernels_ms = profile_step(card, f"{what}: one profiled iteration",
+                              algo.train, wall, n=6)
+    counts = {}
+    for name, fn, per in ops:
+        n_ops, n_kernels = host_ops(fn(algo))
+        counts[f"ops_per_{name}"] = n_ops / per
+        counts[f"kernels_per_{name}"] = n_kernels / per
+    syncs = count_syncs(algo.train)
+    out = {f"{unit}_per_s": steps / wall * 1e3, "iteration_ms": walls,
+           "warm_iterations": warm, "warm_s": warm_s, **parts,
+           loss_key: res[loss_key], **counts, "syncs_per_iteration": syncs,
+           "device_busy_ms": sum(kernels_ms.values()) if kernels_ms
+           else None,
+           "largest_kernels_ms": dict(top_kernels(kernels_ms, 4)),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out["device_busy_share"] = (out["device_busy_ms"] / wall
+                                if kernels_ms else None)
+    log(f"  {what}: {out[f'{unit}_per_s']:.0f} {unit}/s (iterations "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms after {warm} warm, "
+        f"{warm_s:.2f} s); "
+        + "".join(f"{k[:-3]} {v:.1f} ms, " for k, v in parts.items())
+        + "".join(f"{v:.0f} {k.replace('_per_', ' a ')}, "
+                  for k, v in counts.items())
+        + f"{syncs} syncs an iteration; {loss_key} {loss:.4g}; peak "
+        f"{out['peak_gib']:.3f} GiB [{card}]")
+    return algo, out, history
+
+
+def phase_rl_breadth(card, ops):
+    from ray_tpu_torch.rl import (BCConfig, CartPole, CQLConfig, CRRConfig,
+                                  APPOConfig, ImpalaConfig,
+                                  IndependentPPOConfig, LinTSConfig,
+                                  LinUCBConfig, LinearContextBandit,
+                                  MADDPGConfig, MARWILConfig, QMIXConfig,
+                                  SpreadLine, SpreadLineContinuous,
+                                  collect_dataset,
+                                  importance_sampling_estimate)
+
+    log("== rl_breadth: IMPALA and APPO on CartPole 64 x 64, IndependentPPO "
+        "on SpreadLine(4) 32 x 64, QMIX on SpreadLine(4), MADDPG on "
+        "SpreadLineContinuous(3), BC / MARWIL / CQL / CRR on a 20,000-row "
+        "CartPole dataset, LinUCB and LinTS, at their configs' defaults; "
+        "IMPALA, QMIX and LinTS against the CPU")
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    out = {}
+    with fp32_ieee():
+        out["card_equals_cpu"] = {"impala": impala_card_equals_cpu(card),
+                                  "qmix": qmix_card_equals_cpu(card),
+                                  "lints": lints_card_equals_cpu(card)}
+        for kernel in kernels:
+            kernel.launches = 0
+        for name, cfg_cls in (("impala", ImpalaConfig),
+                              ("appo", APPOConfig)):
+            cfg = cfg_cls(env=CartPole, seed=0)
+            _, out[name], hist = breadth_run(
+                card, f"{name.upper()}, CartPole {cfg.num_envs} x "
+                f"{cfg.rollout_length}", cfg.build,
+                steps=cfg.num_envs * cfg.rollout_length, unit="env_steps",
+                loss_key="vf_loss",
+                split=(("collect", lambda a, _: a.collect()),
+                       ("update", lambda a, batch: a.learn(batch))),
+                ops=(("collect_step", lambda a: a.collect,
+                      cfg.rollout_length),
+                     ("update", lambda a: functools.partial(
+                         a.learn, a.collect()), 1)))
+            rho = max(abs(r["mean_rho"] - 1.0) for r in hist)
+            out[name]["max_rho_err"] = rho
+            if rho > BREADTH_RHO:
+                raise AssertionError(f"{name}: mean rho {rho:.3e} from 1")
+        cfg = IndependentPPOConfig(env=SpreadLine, seed=0)
+        _, out["ippo"], _ = breadth_run(
+            card, f"IndependentPPO, SpreadLine(4) {cfg.num_envs} x "
+            f"{cfg.rollout_length}", cfg.build,
+            steps=cfg.num_envs * cfg.rollout_length * BREADTH_AGENTS,
+            unit="env_steps",
+            loss_key="loss_per_agent",
+            split=(("collect", lambda a, _: a.collect()),
+                   ("update", lambda a, traj: a.learn(traj))),
+            ops=(("collect_step", lambda a: a.collect, cfg.rollout_length),
+                 ("epoch", lambda a: functools.partial(a.learn, a.collect()),
+                  cfg.num_sgd_epochs)))
+        shared = dataclasses.replace(cfg, share_parameters=True).build()
+        res = shared.train()
+        w = shared.params["torso"][0]["w"]
+        if not (np.all(np.isfinite(res["loss_per_agent"]))
+                and not torch.equal(w[0], w[1])):
+            raise AssertionError("IndependentPPO, shared init: the copies "
+                                 "did not part or a loss is not finite")
+        out["ippo"]["shared_init_loss_per_agent"] = res["loss_per_agent"]
+        log(f"  IndependentPPO, share_parameters=True: losses "
+            f"{[round(x, 4) for x in res['loss_per_agent']]}, the copies "
+            f"parted after one iteration")
+        del shared
+        for name, cfg in (("qmix", QMIXConfig(env=SpreadLine, seed=0)),
+                          ("maddpg", MADDPGConfig(env=SpreadLineContinuous,
+                                                  seed=0))):
+            _, out[name], _ = breadth_run(
+                card, f"{name.upper()}, {cfg.env.__name__} {cfg.num_envs} x "
+                f"{cfg.rollout_steps}, {cfg.num_updates} updates of "
+                f"{cfg.batch_size}", cfg.build,
+                steps=cfg.num_envs * cfg.rollout_steps, unit="env_steps",
+                loss_key="td_loss" if name == "qmix" else "critic_loss",
+                warm_until=lambda a: a.buffer["size"] >= a.config.learn_start,
+                split=(("collect", lambda a, _: a.collect()),
+                       ("updates", lambda a, _: a.learn())),
+                ops=(("collect_step", lambda a: a.collect,
+                      cfg.rollout_steps),
+                     ("update", lambda a: a.learn, cfg.num_updates)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dataset = collect_dataset(
+            CartPole, lambda obs, draws: (obs[:, 2] + obs[:, 3] > 0).int(),
+            n_steps=BREADTH_DATASET_ROWS, num_envs=BREADTH_DATASET_ENVS)
+        collect_s = time.perf_counter() - t0
+        if len(dataset["obs"]) != BREADTH_DATASET_ROWS or not np.all(
+                np.isfinite(dataset["obs"])):
+            raise AssertionError("the offline dataset is not 20,000 finite "
+                                 "rows")
+        out["dataset"] = {"rows": BREADTH_DATASET_ROWS,
+                          "envs": BREADTH_DATASET_ENVS,
+                          "collect_s": collect_s,
+                          "rows_per_s": BREADTH_DATASET_ROWS / collect_s}
+        log(f"  the dataset: {BREADTH_DATASET_ROWS} rows from "
+            f"{BREADTH_DATASET_ENVS} envs of the scripted expert in "
+            f"{collect_s:.2f} s")
+        rows = (BREADTH_DATASET_ROWS // 256) * 256
+        for name, cfg_cls, loss_key, kw in (
+                ("bc", BCConfig, "bc_loss", {}),
+                ("marwil", MARWILConfig, "policy_loss", {}),
+                ("cql", CQLConfig, "cql_loss", {}),
+                ("crr", CRRConfig, "critic_loss", {})):
+            cfg = cfg_cls(env=CartPole, dataset=dataset, seed=0, **kw)
+            algo, out[name], _ = breadth_run(
+                card, f"{name.upper()}, one epoch of {rows // 256} "
+                f"minibatches of 256", cfg.build, steps=rows, unit="rows",
+                loss_key=loss_key,
+                ops=(("minibatch", lambda a: functools.partial(
+                    a._step, torch.arange(256, device=a.device)), 1),))
+            if name == "bc":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                est = importance_sampling_estimate(
+                    algo.policy, algo.params, dataset,
+                    np.zeros(BREADTH_DATASET_ROWS))
+                est_ms = (time.perf_counter() - t0) * 1e3
+                if not np.isfinite(est["v_target"]):
+                    raise AssertionError(f"the IS estimate is not finite: "
+                                         f"{est}")
+                out["is_estimate"] = {**est, "ms": est_ms}
+                log(f"  IS estimate of BC's policy against the expert's "
+                    f"data: {est} in {est_ms:.1f} ms")
+            del algo
+        for name, cfg_cls in (("linucb", LinUCBConfig),
+                              ("lints", LinTSConfig)):
+            cfg = cfg_cls(env=LinearContextBandit, seed=0)
+            _, out[name], hist = breadth_run(
+                card, f"{name}, d 8, K 4, {cfg.steps_per_iter} steps",
+                cfg.build, steps=cfg.steps_per_iter, unit="steps",
+                loss_key="mean_regret",
+                ops=(("step", lambda a: a.run, cfg.steps_per_iter),))
+            regret = [r["mean_regret"] for r in hist]
+            out[name]["regret_by_iteration"] = regret
+            if not regret[-1] < regret[0]:
+                raise AssertionError(f"{name}: regret did not fall: "
+                                     f"{regret}")
+        launches = {k.__name__: k.launches for k in kernels}
+    if any(launches.values()):
+        raise AssertionError(f"the rl_breadth path launched {launches}")
+    return launches, out
+
+
 def top_kernels(by_name, n):
     """The ``n`` kernels with the most device time, then the port's own
     (flash_*) kernels that are not among them."""
@@ -2560,6 +3141,8 @@ def main():
     by_path["rl"], rl = timed("rl", phase_rl, card, ops)
     by_path["offpolicy"], offpolicy = timed("offpolicy", phase_offpolicy,
                                             card, ops)
+    by_path["rl_breadth"], rl_breadth = timed("rl_breadth",
+                                              phase_rl_breadth, card, ops)
     by_path.update(moe_paths)
     by_path.update(vit_paths)
     log(f"  phase seconds: {json.dumps(seconds)}")
@@ -2574,6 +3157,8 @@ def main():
     print(json.dumps({"rl": rl, "seconds": seconds["rl"]}))
     print(json.dumps({"offpolicy": offpolicy,
                       "seconds": seconds["offpolicy"]}))
+    print(json.dumps({"rl_breadth": rl_breadth,
+                      "seconds": seconds["rl_breadth"]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

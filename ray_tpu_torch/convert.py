@@ -65,9 +65,12 @@ def policy_params_from_numpy(policy: Any, tree: Any) -> Any:
     """A JAX RL network's params as numpy arrays → the port's params for
     ``policy`` on its device: an `rl.MLPPolicy`, `LSTMPolicy` or
     `ConvPolicy`, a `QNetwork` (plain, dueling ``{"torso", "v", "a"}``,
-    C51), a `RecurrentQNetwork` (``{"torso", "lstm", "q"}``), or a `TD3` or
-    `SAC` algorithm (its actor / critic tree; SAC's ``log_alpha`` 0-d) —
-    anything with ``param_shapes()`` and ``device``.  Conv kernels go from
+    C51), a `RecurrentQNetwork` (``{"torso", "lstm", "q"}``), a `TD3` or
+    `SAC` algorithm (its actor / critic tree; SAC's ``log_alpha`` 0-d), an
+    `IndependentPPO` or `MADDPG` algorithm (per-agent trees stacked on a
+    leading agent axis), `QMIX` (``{"q", "mix"}``, the mixer's
+    hypernetworks), `MARWIL` (``{"pi", "v"}``) or `CRR` (``{"pi", "q"}``)
+    — anything with ``param_shapes()`` and ``device``.  Conv kernels go from
     the JAX package's HWIO to OIHW; nothing else changes.  Raises if the
     tree's structure or shapes are not those ``policy`` defines, naming
     the path."""

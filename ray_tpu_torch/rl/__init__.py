@@ -1,11 +1,22 @@
 """Reinforcement learning of the port (counterpart of ``ray_tpu.rl``): the
 batched envs, the MLP / LSTM / conv actor-critic policies, connectors, the
 model catalog, the PPO family (PPO, A2C, PG), exploration, the replay
-buffer on the card (`replay`, `learner`) and the off-policy algorithms
-(DQN, SimpleQ, Rainbow, R2D2, TD3, DDPG, SAC).  Envs, policies, buffers
-and updates run on the card unless given ``device="cpu"``."""
+buffer on the card (`replay`, `learner`), the off-policy algorithms
+(DQN, SimpleQ, Rainbow, R2D2, TD3, DDPG, SAC), IMPALA and APPO (inline),
+multi-agent RL (IndependentPPO, QMIX, MADDPG), offline RL (BC, MARWIL,
+CQL, CRR, importance-sampling estimation) and contextual bandits (LinUCB,
+LinTS).  Envs, policies, buffers and updates run on the card unless given
+``device="cpu"``."""
 
 from .algorithm import Algorithm, track_episode_returns  # noqa: F401
+from .bandit import (  # noqa: F401
+    ContextBandit,
+    LinearContextBandit,
+    LinTS,
+    LinTSConfig,
+    LinUCB,
+    LinUCBConfig,
+)
 from .catalog import build_policy, register_custom_model  # noqa: F401
 from .connectors import (  # noqa: F401
     ClipActions,
@@ -39,6 +50,28 @@ from .exploration import (  # noqa: F401
     OrnsteinUhlenbeckNoise,
     StochasticSampling,
 )
+from .impala import APPOConfig, Impala, ImpalaConfig, vtrace  # noqa: F401
+from .maddpg import MADDPG, MADDPGConfig, SpreadLineContinuous  # noqa: F401
+from .multi_agent import (  # noqa: F401
+    IndependentPPO,
+    IndependentPPOConfig,
+    MultiAgentTorchEnv,
+    SpreadLine,
+)
+from .offline import (  # noqa: F401
+    BC,
+    BCConfig,
+    CQL,
+    CQLConfig,
+    CRR,
+    CRRConfig,
+    MARWIL,
+    MARWILConfig,
+    collect_dataset,
+    importance_sampling_estimate,
+    load_dataset,
+    save_dataset,
+)
 from .pg import PG, PGConfig  # noqa: F401
 from .policy import (  # noqa: F401
     ConvPolicy,
@@ -59,6 +92,7 @@ from .ppo import (  # noqa: F401
     make_rollout_fn,
     make_update_fn,
 )
+from .qmix import QMIX, QMIXConfig, mixer_apply, mixer_init  # noqa: F401
 from .r2d2 import R2D2, R2D2Config, RecurrentQNetwork  # noqa: F401
 from .sac import SAC, SACConfig  # noqa: F401
 from .td3 import DDPG, DDPGConfig, TD3, TD3Config  # noqa: F401

@@ -126,10 +126,20 @@ class Adam:
         torch._foreach_add_(tree_leaves(params), step, alpha=-self.lr)
 
 
+@torch.no_grad()
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+                        ) -> List[torch.Tensor]:
+    """``optax.clip_by_global_norm``: the gradients scaled by ``max_norm /
+    norm`` where their global norm reaches ``max_norm``, unchanged below
+    it; no read of the device."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    unclipped = norm < max_norm
+    return [torch.where(unclipped, g, g / norm * max_norm) for g in grads]
+
+
 class ClippedAdam(Adam):
     """``optax.chain(optax.clip_by_global_norm(max_norm),
-    optax.adam(lr))``: the gradients scaled by ``max_norm / norm`` where
-    their global norm reaches ``max_norm``, then `Adam`."""
+    optax.adam(lr))``: `clip_by_global_norm`, then `Adam`."""
 
     def __init__(self, max_norm: float, lr: float):
         super().__init__(lr)
@@ -138,10 +148,8 @@ class ClippedAdam(Adam):
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
                params) -> None:
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        unclipped = norm < self.max_norm
-        super().update([torch.where(unclipped, g, g / norm * self.max_norm)
-                        for g in grads], state, params)
+        super().update(clip_by_global_norm(grads, self.max_norm), state,
+                       params)
 
 
 def _make_elementwise_apply(pipe):

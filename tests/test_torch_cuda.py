@@ -673,3 +673,28 @@ def test_dqn_at_the_jax_packages_row_trains_on_the_card(cuda):
     assert algo.buffer["data"]["obs"].is_cuda
     assert np.isfinite(res["td_loss"]) and res["td_loss"] != 0
     assert algo.opt_state["count"] == 16
+
+
+@pytest.mark.parametrize("check", ["impala_card_equals_cpu",
+                                   "qmix_card_equals_cpu",
+                                   "lints_card_equals_cpu"])
+def test_rl_breadth_card_matches_the_cpu(cuda, check):
+    """chip_smoke.py's rl_breadth checks, in full fp32: an IMPALA
+    iteration (CartPole 16 x 8: actions, rewards, dones equal, mean rho 1
+    within 1e-5, V-trace, loss and clipped gradients within
+    chip_smoke.BREADTH_TOL of a norm), a QMIX iteration past the gate
+    (SpreadLine(4), 8 x 8, buffer 512: actions equal but at a Q near-tie,
+    the first update's slots equal, Q_tot, loss and gradients, then 4
+    updates within the measured drift) and 512 LinTS steps (arms equal
+    but at a printed near-tie, A and b within the bound); each raises on
+    a difference past its bound."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    name = torch.cuda.get_device_name(0)
+    with chip_smoke.fp32_ieee():
+        out = getattr(chip_smoke, check)(name)
+    assert out["max_err"]

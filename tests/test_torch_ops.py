@@ -331,7 +331,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "          'train.rl', 'metrics', 'core.runtime_metrics',\n"
         "          'util.tracing', 'util.fault_injection', 'rl.pg',\n"
         "          'rl.exploration', 'rl.replay', 'rl.dqn', 'rl.learner',\n"
-        "          'rl.r2d2', 'rl.td3', 'rl.sac'):\n"
+        "          'rl.r2d2', 'rl.td3', 'rl.sac', 'rl.impala',\n"
+        "          'rl.multi_agent', 'rl.qmix', 'rl.maddpg', 'rl.offline',\n"
+        "          'rl.bandit'):\n"
         "    assert 'ray_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
