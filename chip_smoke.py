@@ -129,10 +129,32 @@ Phases, each fatal on failure:
                an epoch or a minibatch, syncs an iteration, peak memory, a
                finite nonzero loss (bandits: regret falling); 0 flash
                launches.
-The kernel phases also hold and time each kernel at the MoE train shape and
-the ViT shapes.  Each phase prints its seconds.  Then one JSON line of the
-engine's numbers, one of the moe and vit phases' (with the phase seconds),
-one of the rl phase's, one of the offpolicy phase's, one of the rl_breadth
+ 12. rl_rest — full fp32: a MAML meta-step (GoalDirection, 4 tasks x 4
+               envs; the second-order meta-gradient within a share of a
+               norm), an AlphaZero self-play (4 games at 8 simulations;
+               visits and actions equal), the Decision Transformer at its
+               paper's Gym width (d_model 128, 1 head, 3 layers, K 20,
+               batch 64: one step's gradients, an AdamW step and an
+               evaluation episode's return) and a SlateQ iteration past
+               the gate (rows equal but at a printed near-tie, 4 updates)
+               on the card against the CPU; that DT's loss and gradients
+               through the fp32 flash kernels against reference attention
+               on the card, its launches over one training_step (fwd = dq
+               = dkv = 3 a step) and one evaluation episode (1,500
+               forwards); then ES and ARS on CartPole, MAML, Dreamer on
+               CartPole, DT at its defaults (head dim 16: reference
+               attention) and at the paper's width on the rl_breadth
+               phase's dataset, AlphaZero on TicTacToe and SlateQ on
+               RecSlateEnv at their configs' defaults, measured as in
+               rl_breadth (AlphaZero profiled by move); 0 flash launches
+               but for DT at the paper's width.
+The kernel phases also hold and time each kernel at the MoE train shape,
+the ViT shapes and the DT shapes (fp32, 60 tokens, one head of 128; the
+planted faults there include the causal mask left off and the first key
+dropped, since no key tile lies inside one tile).  Each phase prints its
+seconds.  Then one JSON line of the engine's numbers, one of the moe and
+vit phases' (with the phase seconds), one of the rl phase's, one of the
+offpolicy phase's, one of the rl_breadth phase's, one of the rl_rest
 phase's, one of the kernels, and last the device line.  Exits non-zero
 without a result when no CUDA device is present.
 """
@@ -184,6 +206,11 @@ CASES = [
     ("moe-train", 4, 1024, 1024, 12, 12, 64, torch.bfloat16, True),
     ("vit", 64, 197, 197, 12, 12, 64, torch.bfloat16, False),
     ("vit-predict", 256, 197, 197, 12, 12, 64, torch.bfloat16, False),
+    # the Decision Transformer at the Gym width of its paper (rl_rest):
+    # fp32, one head of 128, 3 x 20 tokens, shorter than one tile; a
+    # minibatch of 64 in training, one context in the evaluation rollout
+    ("dt", 64, 60, 60, 1, 1, 128, torch.float32, True),
+    ("dt-eval", 1, 60, 60, 1, 1, 128, torch.float32, True),
 ]
 PROMPTS = (2048, 1000, 17)
 NEXT_STEPS = 16
@@ -206,11 +233,14 @@ BWD_CASES = [
     ("MHA", 2, 1024, 1024, 16, 16, 64, torch.bfloat16, True),
     ("moe-train", 4, 1024, 1024, 12, 12, 64, torch.bfloat16, True),
     ("vit", 64, 197, 197, 12, 12, 64, torch.bfloat16, False),
+    ("dt", 64, 60, 60, 1, 1, 128, torch.float32, True),
 ]
 # the shapes each kernel is timed at: {label: case name}
 TIMED_FWD = {"serve": "main", "train": "train", "moe_train": "moe-train",
-             "vit": "vit", "vit_predict": "vit-predict"}
-TIMED_BWD = {"train": "main", "moe_train": "moe-train", "vit": "vit"}
+             "vit": "vit", "vit_predict": "vit-predict", "dt": "dt",
+             "dt_eval": "dt-eval"}
+TIMED_BWD = {"train": "main", "moe_train": "moe-train", "vit": "vit",
+             "dt": "dt"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
 # the engine phase: llama-1b, DecodeEngineConfig(max_slots=8,
 # prefill_chunk_tokens=32), max_len 2048
@@ -333,6 +363,37 @@ BREADTH_RHO = 1e-5        # |mean rho - 1| in inline mode
 BREADTH_TOL = {"impala": 5e-6, "qmix_first": 5e-6, "qmix_loss": 2e-6,
                "qmix_params_in_steps": 1e-3, "lints": 1e-6}
 BREADTH_TIE = {"lints": 1e-5}
+# the rl_rest phase, each run at its config's own defaults (es.py, maml.py,
+# dreamer.py, dt.py, alpha_zero.py, slateq.py), and the Decision
+# Transformer also at the Gym width of Chen et al. 2021 ("Decision
+# Transformer", appendix, Gym hyperparameters: 3 layers, 1 head, embedding
+# 128, context 20, batch 64, lr 1e-4, weight decay 1e-4; d_ff 4 x 128) on
+# the rl_breadth phase's 20,000-row CartPole expert dataset.  The card =
+# CPU checks run a MAML meta-step at 4 tasks x 4 envs, an AlphaZero
+# self-play of 4 games at 8 simulations, a DT step and episode at the
+# paper's width, and a SlateQ iteration past the gate at 16 envs x 8 steps.
+DT_PAPER = dict(d_model=128, n_heads=1, n_layers=3, context_len=20,
+                batch_size=64, d_ff=512, lr=1e-4, seed=0)
+REST_MAML_PARITY = dict(meta_batch_size=4, num_envs=4, seed=0)
+REST_AZ_PARITY = dict(games_per_iter=4, num_simulations=8, batch_size=36,
+                      seed=0)
+REST_SLATE_PARITY = dict(num_envs=16, rollout_steps=8, buffer_capacity=512,
+                         batch_size=32, num_updates=4, learn_start=64,
+                         eps_start=0.3, seed=0)
+# card against CPU (and flash against reference attention on the card),
+# full fp32.  The first H100 run measured: MAML's meta-loss 4.9e-6 apart
+# (relative), its reward means 1.9e-9, the meta-gradient 1.4e-6 of a norm;
+# AlphaZero's visits and boards equal; DT's loss 7.8e-8 and gradients
+# 6.3e-7 of a norm (flash on the card, reference on the CPU), the episode's
+# return equal; flash against reference attention on the card: loss equal,
+# gradients 1.0e-6 of a norm; SlateQ's 128 rows equal, the loss after 4
+# updates 2.1e-7 apart and the params 6.0e-5 of an Adam step.  The bounds
+# are about ten times those; SlateQ's rows within the env-step bound (rtol
+# 1e-5 / atol 1e-6).  A greedy slate may part only where the CPU's top two
+# decomposed values were within REST_TIE of the largest.
+REST_TOL = {"maml": 5e-5, "maml_rewards": 1e-7, "dt": 1e-5, "dt_flash": 1e-5,
+            "slateq_loss": 2e-6, "slateq_params_in_steps": 1e-3}
+REST_TIE = 1e-5
 HOST_CALLS = 200   # wrapper calls timed on the host clock, no sync inside
 
 
@@ -401,6 +462,13 @@ def named(cases, name):
     return next(case for case in cases if case[0] == name)
 
 
+def kernel_name(wrapper, dtype):
+    """The CUDA kernel a wrapper launches for ``dtype``: the Hopper kernel
+    for bf16, the scalar fp32 route's otherwise."""
+    return f"{wrapper}_{'hopper' if dtype == torch.bfloat16 else 'fp32'}" \
+        "_kernel"
+
+
 def fwd_matches(o, lse, o_ref, lse_ref, dtype):
     """→ (agrees, max |ΔO|, max |ΔLSE|, largest tile error of O)."""
     from ray_tpu_torch.ops import tile_rel_err
@@ -453,7 +521,7 @@ def time_fwd(card, ops, what, b, s, h, h_kv, d, dtype, causal=True):
         return ops.flash_fwd(q, k, v, causal, scale)
 
     ms = cuda_ms(kernel, iters=50)
-    kernel_device_ms = device_ms(kernel, "flash_fwd_hopper_kernel")
+    kernel_device_ms = device_ms(kernel, kernel_name("flash_fwd", dtype))
     plain_ms = cuda_ms(
         lambda: ops.flash_attention_plain(q, k, v, causal, scale), iters=5,
         warmup=1)
@@ -517,9 +585,12 @@ def phase_kernels(card, ops):
             if not (torch.all(o[:, :dead] == 0)
                     and torch.all(lse[:, :, :dead] == 0)):
                 raise AssertionError("dead rows are not O = 0, LSE = 0")
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 or name.startswith("dt"):
             faults = ops.planted_fwd_faults(ops.flash_fwd, q, k, v, o,
                                             causal, scale)
+            if len(faults) < 3:     # a sequence within one tile
+                faults.update(short_fwd_faults(ops, q, k, v, o, causal,
+                                               scale))
             refused = []
             for what, bad in faults.items():
                 if fwd_matches(bad, lse, o_ref, lse_ref, dtype)[0]:
@@ -549,6 +620,22 @@ def phase_kernels(card, ops):
             "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
             "bound_by": serve["bound_by"], "library_ms": serve["library_ms"],
             "by_shape": by_shape}
+
+
+def short_fwd_faults(ops, q, k, v, o, causal, scale):
+    """{what: O} of wrong forward kernels at a sequence shorter than a
+    64-row tile, where `ops.planted_fwd_faults` finds no key tile to drop:
+    the causal mask left off, and the first key's V dropped (every row
+    sees it)."""
+    faults = {}
+    if causal:
+        faults["the causal mask off"] = ops.flash_fwd(q, k, v, False,
+                                                      scale)[0]
+    v_cut = v.clone()
+    v_cut[:, 0] = 0
+    faults["the first key dropped"] = ops.flash_fwd(q, k, v_cut, causal,
+                                                    scale)[0]
+    return faults
 
 
 def bwd_matches(got, want, dtype):
@@ -715,7 +802,7 @@ def time_bwd(card, ops, what, b, s_q, s_kv, h, h_kv, d, dtype, causal):
              dict(products=4, q_like=2, kv_like=4, stats=2))):
         kname = kernel.__name__
         ms = cuda_ms(lambda: kernel(*args), iters=20)
-        dev = device_ms(lambda: kernel(*args), f"{kname}_hopper_kernel")
+        dev = device_ms(lambda: kernel(*args), kernel_name(kname, dtype))
         plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
         bound_ms, bound_by = attention_bound(b, s_q, s_kv, h, h_kv, d,
                                              dtype, causal, **counts)
@@ -2789,6 +2876,15 @@ def lints_card_equals_cpu(card):
             "near_tie_gap": gap, "max_err": errs}
 
 
+def synced_ms(fn):
+    """Wall time (ms) of one call of ``fn``, synced before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def count_syncs(fn):
     """Host-device synchronizations in one call of ``fn``, as CUDA's sync
     debug mode reports them (one warning each)."""
@@ -2806,7 +2902,7 @@ def count_syncs(fn):
 
 
 def breadth_run(card, what, make, *, steps, unit, loss_key, warm_until=None,
-                split=(), ops=()):
+                split=(), ops=(), profiled=None):
     """Warm iterations (one, or until ``warm_until(algo)``),
     BREADTH_TIMED_ITERS timed ones (synced by the iteration's read of its
     metrics), the ``split`` parts of one iteration each synced, one
@@ -2815,7 +2911,10 @@ def breadth_run(card, what, make, *, steps, unit, loss_key, warm_until=None,
     the loss named ``loss_key`` must be finite and nonzero.  ``steps``
     units (env steps, rows, bandit steps) an iteration.  ``ops`` entries
     are (name, prepare, per): ``prepare(algo)`` makes, outside the count,
-    the call that is counted."""
+    the call that is counted.  ``profiled``: (name, prepare) of a part of
+    an iteration to profile instead of the whole (the profiler's event
+    processing grows with the ops it saw), its busy share against its own
+    unprofiled wall (the median of 3 synced calls)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     algo = make()
@@ -2847,8 +2946,13 @@ def breadth_run(card, what, make, *, steps, unit, loss_key, warm_until=None,
         torch.cuda.synchronize()
         parts[f"{name}_ms"] = (time.perf_counter() - t1) * 1e3
     wall = float(np.median(walls))
-    kernels_ms = profile_step(card, f"{what}: one profiled iteration",
-                              algo.train, wall, n=6)
+    part, part_fn, part_wall = "iteration", algo.train, wall
+    if profiled is not None:
+        part, part_fn = profiled[0], profiled[1](algo)
+        part_wall = float(np.median([synced_ms(part_fn)
+                                     for _ in range(3)]))
+    kernels_ms = profile_step(card, f"{what}: one profiled {part}",
+                              part_fn, part_wall, n=6)
     counts = {}
     for name, fn, per in ops:
         n_ops, n_kernels = host_ops(fn(algo))
@@ -2862,8 +2966,10 @@ def breadth_run(card, what, make, *, steps, unit, loss_key, warm_until=None,
            else None,
            "largest_kernels_ms": dict(top_kernels(kernels_ms, 4)),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    out["device_busy_share"] = (out["device_busy_ms"] / wall
+    out["device_busy_share"] = (out["device_busy_ms"] / part_wall
                                 if kernels_ms else None)
+    if profiled is not None:
+        out["profiled"], out[f"{part}_ms"] = part, part_wall
     log(f"  {what}: {out[f'{unit}_per_s']:.0f} {unit}/s (iterations "
         f"{', '.join(f'{w:.1f}' for w in walls)} ms after {warm} warm, "
         f"{warm_s:.2f} s); "
@@ -2875,6 +2981,27 @@ def breadth_run(card, what, make, *, steps, unit, loss_key, warm_until=None,
     return algo, out, history
 
 
+@functools.lru_cache(maxsize=None)
+def expert_dataset():
+    """The 20,000-row CartPole dataset of tests/test_offline_rl.py's
+    scripted expert, collected on the card once (the rl_breadth phase's
+    offline RL and the rl_rest phase's Decision Transformer train on it).
+    → (columns, seconds the collection took)."""
+    from ray_tpu_torch.rl import CartPole, collect_dataset
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dataset = collect_dataset(
+        CartPole, lambda obs, draws: (obs[:, 2] + obs[:, 3] > 0).int(),
+        n_steps=BREADTH_DATASET_ROWS, num_envs=BREADTH_DATASET_ENVS)
+    collect_s = time.perf_counter() - t0
+    if len(dataset["obs"]) != BREADTH_DATASET_ROWS or not np.all(
+            np.isfinite(dataset["obs"])):
+        raise AssertionError("the offline dataset is not 20,000 finite "
+                             "rows")
+    return dataset, collect_s
+
+
 def phase_rl_breadth(card, ops):
     from ray_tpu_torch.rl import (BCConfig, CartPole, CQLConfig, CRRConfig,
                                   APPOConfig, ImpalaConfig,
@@ -2882,7 +3009,6 @@ def phase_rl_breadth(card, ops):
                                   LinUCBConfig, LinearContextBandit,
                                   MADDPGConfig, MARWILConfig, QMIXConfig,
                                   SpreadLine, SpreadLineContinuous,
-                                  collect_dataset,
                                   importance_sampling_estimate)
 
     log("== rl_breadth: IMPALA and APPO on CartPole 64 x 64, IndependentPPO "
@@ -2955,16 +3081,7 @@ def phase_rl_breadth(card, ops):
                 ops=(("collect_step", lambda a: a.collect,
                       cfg.rollout_steps),
                      ("update", lambda a: a.learn, cfg.num_updates)))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dataset = collect_dataset(
-            CartPole, lambda obs, draws: (obs[:, 2] + obs[:, 3] > 0).int(),
-            n_steps=BREADTH_DATASET_ROWS, num_envs=BREADTH_DATASET_ENVS)
-        collect_s = time.perf_counter() - t0
-        if len(dataset["obs"]) != BREADTH_DATASET_ROWS or not np.all(
-                np.isfinite(dataset["obs"])):
-            raise AssertionError("the offline dataset is not 20,000 finite "
-                                 "rows")
+        dataset, collect_s = expert_dataset()
         out["dataset"] = {"rows": BREADTH_DATASET_ROWS,
                           "envs": BREADTH_DATASET_ENVS,
                           "collect_s": collect_s,
@@ -3015,6 +3132,450 @@ def phase_rl_breadth(card, ops):
         launches = {k.__name__: k.launches for k in kernels}
     if any(launches.values()):
         raise AssertionError(f"the rl_breadth path launched {launches}")
+    return launches, out
+
+
+# -- rl_rest: ES / ARS, MAML, Dreamer, DT, AlphaZero, SlateQ ---------------
+
+def rest_to(tree, device):
+    """Copies on ``device`` of a tree of tensors (dicts, lists, tuples)."""
+    from ray_tpu_torch.rl.policy import tree_map
+
+    return tree_map(lambda x: x.to(device, copy=True), tree)
+
+
+def maml_card_equals_cpu(card):
+    """A MAML meta-step (GoalDirection, 4 tasks x 4 envs x 16 steps, one
+    inner step) on the card and on the CPU from the same weights and
+    draws, full fp32: the meta-loss within REST_TOL["maml"] (relative),
+    the pre- and post-adaptation reward means within
+    REST_TOL["maml_rewards"], the second-order meta-gradient, which runs
+    through both rollouts, within REST_TOL["maml"] of a norm."""
+    from ray_tpu_torch.rl import MAMLConfig
+
+    cpu = MAMLConfig(device="cpu", **REST_MAML_PARITY).build()
+    gpu = MAMLConfig(device="cuda", **REST_MAML_PARITY).build()
+    gpu.params = rest_to(cpu.params, gpu.device)
+    draws = cpu.meta_draws()
+    want = cpu.meta_gradient(draws)
+    got = gpu.meta_gradient(rest_to(draws, gpu.device))
+    on_card("the MAML meta-gradient")
+    err = {"loss": share_of_norm(got[:1], want[:1]),
+           "rewards": max(abs(float(g) - float(w))
+                          for g, w in zip(got[1:3], want[1:3])),
+           "meta_gradient": share_of_norm(got[3], want[3])}
+    log(f"  MAML card = CPU (4 tasks x 4 envs): meta-loss {float(want[0]):.5g}"
+        f" ({err['loss']:.2e} apart), rewards {err['rewards']:.2e} apart, "
+        f"the meta-gradient {err['meta_gradient']:.2e} of a norm (<= "
+        f"{REST_TOL['maml']:g}) [{card}]")
+    if max(err["loss"], err["meta_gradient"]) > REST_TOL["maml"] \
+            or err["rewards"] > REST_TOL["maml_rewards"]:
+        raise AssertionError(f"MAML: the card's meta-step differs from the "
+                             f"CPU's: {err}")
+    return {"max_err": err}
+
+
+def alphazero_card_equals_cpu(card):
+    """An AlphaZero self-play (TicTacToe, 4 games at 8 simulations a move,
+    the first 2 moves sampled by visits) on the card and on the CPU from
+    the same weights and draws, full fp32: every move's visit
+    distribution, the boards (so every action), the outcomes and the live
+    masks equal."""
+    from ray_tpu_torch.rl import AlphaZeroConfig
+
+    cpu = AlphaZeroConfig(device="cpu", **REST_AZ_PARITY).build()
+    gpu = AlphaZeroConfig(device="cuda", **REST_AZ_PARITY).build()
+    gpu.params = rest_to(cpu.params, gpu.device)
+    draws = cpu.selfplay_draws()
+    want = cpu.selfplay(draws)
+    got = gpu.selfplay(rest_to(draws, gpu.device))
+    on_card("the AlphaZero self-play")
+    same = {k: bool(torch.equal(got[k].cpu(), want[k])) for k in want}
+    moves = int(want["live"].sum())
+    log(f"  AlphaZero card = CPU (4 games x 8 simulations): {moves} moves; "
+        f"visit distributions, boards, outcomes, live masks equal: {same} "
+        f"[{card}]")
+    if not all(same.values()):
+        raise AssertionError(f"AlphaZero: the card's self-play differs from "
+                             f"the CPU's: {same}")
+    return {"max_err": {"moves": moves, **same}}
+
+
+def dt_card_equals_cpu(card, dataset):
+    """The Decision Transformer at the paper's width (DT_PAPER) on the card,
+    through the flash kernels, and on the CPU, through reference
+    attention, from the same weights, minibatch and draws, full fp32: one
+    minibatch's loss and gradients within REST_TOL["dt"] of a norm, then
+    one AdamW step on each side and one 500-step evaluation episode with
+    the same return."""
+    from ray_tpu_torch.rl import CartPole, DTConfig
+    from ray_tpu_torch.rl.learner import value_and_grad
+
+    kw = dict(DT_PAPER, steps_per_iter=1)
+    cpu = DTConfig(env=CartPole, dataset=dataset, device="cpu", **kw).build()
+    gpu = DTConfig(env=CartPole, dataset=dataset, device="cuda",
+                   **kw).build()
+    gpu.params = rest_to(cpu.params, gpu.device)
+    gpu.opt_state = gpu.optimizer.init(gpu.params)
+    idx = cpu.batch_draws()
+    batch = {k: v[idx[0]] for k, v in cpu._windows.items()}
+    want = value_and_grad(cpu.loss, cpu.params, batch)
+    got = value_and_grad(gpu.loss, gpu.params, rest_to(batch, gpu.device))
+    on_card("the DT minibatch's gradients")
+    err = {"loss": share_of_norm([got[0]], [want[0]]),
+           "gradients": share_of_norm(got[2], want[2])}
+    cpu.training_step(idx)
+    gpu.training_step(rest_to(idx, gpu.device))
+    draws = cpu.eval_draws()
+    target = cpu.config.target_return
+    ret = (float(gpu.eval_rollout(target, rest_to(draws, gpu.device))),
+           float(cpu.eval_rollout(target, draws)))
+    log(f"  DT card = CPU (d_model 128, 1 head, 3 layers, batch 64): loss "
+        f"{float(want[0]):.5g} ({err['loss']:.2e} apart), gradients "
+        f"{err['gradients']:.2e} of a norm (<= {REST_TOL['dt']:g}); after "
+        f"one AdamW step an evaluation episode returns {ret[0]:g} on the "
+        f"card, {ret[1]:g} on the CPU [{card}]")
+    if max(err.values()) > REST_TOL["dt"] or ret[0] != ret[1]:
+        raise AssertionError(f"DT: the card differs from the CPU: {err}, "
+                             f"returns {ret}")
+    return {"max_err": err, "eval_return": ret[0]}
+
+
+def slate_gap(algo, obs, e):
+    """The CPU's top-two decomposed slate values of env ``e`` (a share of
+    the largest)."""
+    q = algo._q_items(algo.params, obs["user"][e], obs["topics"][e],
+                      obs["quality"][e])
+    v = torch.exp(algo.env.choice_logits(obs["user"][e], obs["topics"][e]))
+    combos = algo._combos
+    value = (v[combos] * q[combos]).sum(-1) / (
+        np.exp(algo.env.no_click_logit) + v[combos].sum(-1))
+    top = torch.topk(value, 2).values
+    return float((top[0] - top[1]) / top[0].abs())
+
+
+def slateq_card_equals_cpu(card):
+    """A SlateQ iteration past the gate (RecSlateEnv, 16 envs x 8 steps,
+    learn_start 64, batch 32, 4 updates, epsilon 0.3) on the card and on
+    the CPU from the same weights, envs and draws, full fp32: the collect's
+    slates, picks and dones equal (a greedy slate may part only at a
+    near-tie of the CPU's decomposed values, top two under REST_TIE, and
+    the rows are compared up to that step), users, documents and rewards
+    within the env-step bound; then 4 updates from the CPU's buffer and
+    indices on both sides: the loss within REST_TOL["slateq_loss"], the
+    params within REST_TOL["slateq_params_in_steps"] of an Adam step."""
+    from ray_tpu_torch.rl import SlateQConfig
+
+    cpu = SlateQConfig(device="cpu", **REST_SLATE_PARITY).build()
+    gpu = SlateQConfig(device="cuda", **REST_SLATE_PARITY).build()
+    for name in ("params", "target_params", "env_states", "obs"):
+        setattr(gpu, name, rest_to(getattr(cpu, name), gpu.device))
+    gpu.opt_state = gpu.optimizer.init(gpu.params)
+    draws = cpu.collect_draws()
+    start_obs = cpu.obs
+    cpu.collect(draws)
+    gpu.collect(rest_to(draws, gpu.device))
+    on_card("the SlateQ collect")
+    E, T = cpu.config.num_envs, cpu.config.rollout_steps
+    rows = {k: v[:E * T] for k, v in cpu.buffer["data"].items()}
+    grows = {k: v[:E * T].cpu() for k, v in gpu.buffer["data"].items()}
+    upto, gap = T, None
+    for t in range(T):
+        diff = torch.nonzero(~torch.all(
+            rows["slate"][t * E:(t + 1) * E]
+            == grows["slate"][t * E:(t + 1) * E], -1))
+        if len(diff):
+            e = int(diff[0])
+            obs = start_obs if t == 0 else {
+                "user": rows["next_user"][(t - 1) * E:t * E],
+                "topics": rows["next_topics"][(t - 1) * E:t * E],
+                "quality": rows["next_quality"][(t - 1) * E:t * E]}
+            gap = slate_gap(cpu, obs, e)
+            log(f"  SlateQ card = CPU: env {e}'s slate parts at step {t}; "
+                f"the CPU's top-2 values there {gap:.3e} apart (a tie if < "
+                f"{REST_TIE:g})")
+            if gap >= REST_TIE:
+                raise AssertionError(f"SlateQ: env {e}'s slate differs at "
+                                     f"step {t}, not at a tie")
+            upto = t
+            break
+    n = upto * E
+    for k in ("slate", "pick", "done"):
+        if not torch.equal(grows[k][:n], rows[k][:n]):
+            raise AssertionError(f"SlateQ: the collect's {k} differ")
+    env_err = max((float(((grows[k][:n] - rows[k][:n]).abs()
+                          - 1e-5 * rows[k][:n].abs()).max()) if n else 0.0)
+                  for k in ("user", "topics", "reward", "next_user"))
+    if env_err > 1e-6:
+        raise AssertionError(f"SlateQ: the collect's rows differ by "
+                             f"{env_err:.3e} past the env-step bound")
+    # the updates, from the CPU's buffer and indices on both sides
+    gpu.buffer = rest_to(cpu.buffer["data"], gpu.device)
+    gpu.buffer = {"data": gpu.buffer, "cursor": cpu.buffer["cursor"],
+                  "size": cpu.buffer["size"],
+                  "capacity": cpu.buffer["capacity"]}
+    before = rest_to(cpu.params, gpu.device)
+    gpu.params = rest_to(cpu.params, gpu.device)
+    gpu.target_params = rest_to(cpu.target_params, gpu.device)
+    gpu.opt_state = gpu.optimizer.init(gpu.params)
+    gen = torch.Generator().manual_seed(5)
+    upd = [{"idx": torch.randint(cpu.buffer["size"], (32,), generator=gen)}
+           for _ in range(cpu.config.num_updates)]
+    want = cpu.learn(upd)
+    got = gpu.learn(rest_to(upd, gpu.device))
+    on_card("the SlateQ updates")
+    from ray_tpu_torch.rl.policy import tree_leaves
+
+    lr = cpu.config.lr
+    steps = max(float((g.cpu() - w).abs().max()) / lr
+                for g, w in zip(tree_leaves(gpu.params),
+                                tree_leaves(cpu.params)))
+    moved = max(float((g - b).abs().max()) / lr
+                for g, b in zip(tree_leaves(gpu.params),
+                                tree_leaves(before)))
+    err = {"rows_compared": n, "tie_gap": gap, "env": env_err,
+           "loss": share_of_norm([got], [want]), "params_in_steps": steps}
+    log(f"  SlateQ card = CPU (16 envs x 8 steps, 4 updates of 32): "
+        f"{n} rows equal (slates, picks, dones) and within the env-step "
+        f"bound; the last update's loss {float(want):.5g} "
+        f"({err['loss']:.2e} apart), the params {steps:.2e} of an Adam "
+        f"step apart after the params moved {moved:.2f} steps [{card}]")
+    if err["loss"] > REST_TOL["slateq_loss"] \
+            or steps > REST_TOL["slateq_params_in_steps"]:
+        raise AssertionError(f"SlateQ: the card's updates differ from the "
+                             f"CPU's: {err}")
+    return {"max_err": err}
+
+
+def dt_flash_against_reference(card, dataset, kernels):
+    """One minibatch of the DT at the paper's width on the card through
+    the flash kernels (3 launches of each a step: one forward, dQ and
+    dK/dV per layer) and through reference attention, from the same
+    weights: the loss and the gradients within REST_TOL["dt_flash"] of a
+    norm."""
+    from ray_tpu_torch.ops.attention import multi_head_attention
+    from ray_tpu_torch.rl import CartPole, DTConfig
+    from ray_tpu_torch.rl import dt as dt_module
+    from ray_tpu_torch.rl.learner import value_and_grad
+    import unittest.mock
+
+    algo = DTConfig(env=CartPole, dataset=dataset, device="cuda",
+                    **DT_PAPER).build()
+    batch = {k: v[algo.batch_draws()[0]] for k, v in algo._windows.items()}
+    for kernel in kernels:
+        kernel.launches = 0
+    flash = value_and_grad(algo.loss, algo.params, batch)
+    on_card("the DT step through the flash kernels")
+    launches = {k.__name__: k.launches for k in kernels}
+    with unittest.mock.patch.object(
+            dt_module, "multi_head_attention",
+            functools.partial(multi_head_attention, impl="reference")):
+        ref = value_and_grad(algo.loss, algo.params, batch)
+    on_card("the DT step through reference attention")
+    err = {"loss": share_of_norm([flash[0]], [ref[0].cpu()]),
+           "gradients": share_of_norm(flash[2], [g.cpu() for g in ref[2]])}
+    log(f"  DT (d_model 128, 1 head, 3 layers, batch 64 x 60 tokens) "
+        f"flash against reference attention: loss {float(ref[0]):.5g} "
+        f"({err['loss']:.2e} apart), gradients {err['gradients']:.2e} of a "
+        f"norm (<= {REST_TOL['dt_flash']:g}); launches {launches} [{card}]")
+    if max(err.values()) > REST_TOL["dt_flash"]:
+        raise AssertionError(f"DT: flash and reference attention differ: "
+                             f"{err}")
+    if any(n != 3 for n in launches.values()):
+        raise AssertionError(f"DT: one step launched {launches}, not 3 of "
+                             f"each kernel")
+    return {"max_err": err, "launches": launches}
+
+
+def dt_paper_launches(card, algo, kernels):
+    """The flash launches of one training_step (steps_per_iter AdamW steps)
+    and of one evaluation episode of the DT at the paper's width: fwd = dq
+    = dkv = 3 a step; fwd = 3 x max_episode_steps, dq = dkv = 0 an
+    episode.  → the counts of both, summed by kernel."""
+    steps = algo.config.steps_per_iter
+    episode = algo.env.max_episode_steps
+    counted = {}
+    for what, fn, want in (
+            ("training_step", algo.train,
+             {"flash_fwd": 3 * steps, "flash_bwd_dq": 3 * steps,
+              "flash_bwd_dkv": 3 * steps}),
+            ("evaluation episode", lambda: algo.evaluate(1),
+             {"flash_fwd": 3 * episode, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0})):
+        for kernel in kernels:
+            kernel.launches = 0
+        fn()
+        got = {k.__name__: k.launches for k in kernels}
+        log(f"  DT at the paper's width: one {what} launched {got} (want "
+            f"{want})")
+        if got != want:
+            raise AssertionError(f"DT: one {what} launched {got}, not "
+                                 f"{want}")
+        for name, n in got.items():
+            counted[name] = counted.get(name, 0) + n
+    return counted
+
+
+def phase_rl_rest(card, ops):
+    from ray_tpu_torch.rl import (AlphaZeroConfig, ARSConfig, CartPole,
+                                  DreamerConfig, DTConfig, ESConfig,
+                                  MAMLConfig, SlateQConfig)
+    from ray_tpu_torch.rl.alpha_zero import dirichlet
+
+    log("== rl_rest: ES and ARS on CartPole, MAML on GoalDirection, Dreamer "
+        "on CartPole, the Decision Transformer at its defaults and at the "
+        "paper's Gym width (flash kernels, fp32, d 128), AlphaZero on "
+        "TicTacToe, SlateQ on RecSlateEnv, at their configs' defaults; "
+        "MAML, AlphaZero, DT and SlateQ against the CPU")
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    out = {}
+    with fp32_ieee():
+        dataset, _ = expert_dataset()
+        t0 = time.perf_counter()
+        out["card_equals_cpu"] = {
+            "maml": maml_card_equals_cpu(card),
+            "alphazero": alphazero_card_equals_cpu(card),
+            "dt": dt_card_equals_cpu(card, dataset),
+            "slateq": slateq_card_equals_cpu(card)}
+        out["dt_flash_vs_reference"] = dt_flash_against_reference(
+            card, dataset, kernels)
+        out["checks_seconds"] = time.perf_counter() - t0
+        log(f"  the card = CPU and flash = reference checks: "
+            f"{out['checks_seconds']:.1f} s")
+
+        def eval_forward(a):
+            """The forward an evaluation step makes: one context."""
+            w = a._windows
+            return functools.partial(a._logits, a.params, w["rtg"][:1],
+                                     w["obs"][:1], w["action"][:1])
+
+        def dt_update(a):
+            return functools.partial(a.step, a.batch_draws()[0])
+
+        dt_ops = (("update", dt_update, 1), ("eval_forward", eval_forward, 1))
+
+        def az_move(a):
+            """One move's search for all the iteration's games."""
+            cfg = a.config
+            return functools.partial(
+                a._mcts, a.params, a.game.initial_state(cfg.games_per_iter),
+                dirichlet(cfg.dirichlet_alpha, (cfg.games_per_iter,
+                                                a.game.num_actions),
+                          a.generator), cfg.dirichlet_eps)
+
+        es, ars = ESConfig(env=CartPole, seed=0), ARSConfig(env=CartPole,
+                                                            seed=0)
+        maml, dreamer = MAMLConfig(seed=0), DreamerConfig(env=CartPole,
+                                                          seed=0)
+        dt, dt_paper = (DTConfig(env=CartPole, dataset=dataset, seed=0),
+                        DTConfig(env=CartPole, dataset=dataset, **DT_PAPER))
+        az, slate = AlphaZeroConfig(seed=0), SlateQConfig(seed=0)
+        runs = (
+            ("es", f"ES, CartPole {es.num_perturbations} pairs x "
+             f"{es.episodes_per_eval} episodes x {es.horizon} steps", es,
+             dict(steps=2 * es.num_perturbations * es.episodes_per_eval
+                  * es.horizon, unit="env_steps",
+                  loss_key="episode_reward_mean",
+                  split=(("evaluate", lambda a, _: a._evaluate_directions()),
+                         ("final_eval", lambda a, _: a._mean_return())),
+                  ops=(("rollout_step", lambda a: a._evaluate_directions,
+                        es.horizon),))),
+            ("ars", f"ARS, CartPole {ars.num_perturbations} pairs x "
+             f"{ars.episodes_per_eval} episodes x {ars.horizon} steps", ars,
+             dict(steps=2 * ars.num_perturbations * ars.episodes_per_eval
+                  * ars.horizon, unit="env_steps",
+                  loss_key="episode_reward_mean")),
+            ("maml", f"MAML, GoalDirection {maml.meta_batch_size} tasks x "
+             f"{maml.num_envs} envs x {maml.rollout_length} steps", maml,
+             dict(steps=maml.meta_batch_size * maml.num_envs
+                  * maml.rollout_length * (maml.inner_steps + 1),
+                  unit="env_steps", loss_key="meta_loss",
+                  split=(("draws", lambda a, _: a.meta_draws()),
+                         ("meta_gradient", lambda a, d: a.meta_gradient(d)),
+                         ("adam", lambda a, r: a.optimizer.update(
+                             r[3], a.opt_state, a.params))),
+                  ops=(("meta_step", lambda a: functools.partial(
+                      a.meta_gradient, a.meta_draws()), 1),))),
+            ("dreamer", f"Dreamer, CartPole {dreamer.num_envs} x "
+             f"{dreamer.seq_len}, {dreamer.model_updates} + "
+             f"{dreamer.ac_updates} updates of {dreamer.batch_size}", dreamer,
+             dict(steps=dreamer.num_envs * dreamer.seq_len,
+                  unit="env_steps", loss_key="model_loss",
+                  warm_until=lambda a: a.buffer["size"]
+                  >= a.config.learn_start,
+                  split=(("collect", lambda a, _: a.collect()),
+                         ("learn", lambda a, _: a.learn())),
+                  ops=(("collect_step", lambda a: a.collect,
+                        dreamer.seq_len),
+                       ("update", lambda a: a.learn,
+                        dreamer.model_updates + dreamer.ac_updates)))),
+            ("dt", f"DT, d_model {dt.d_model}, {dt.n_heads} heads (head dim "
+             f"{dt.d_model // dt.n_heads}: reference attention), "
+             f"{dt.steps_per_iter} steps of {dt.batch_size}", dt,
+             dict(steps=dt.steps_per_iter, unit="updates",
+                  loss_key="action_ce_loss",
+                  split=(("eval_episode", lambda a, _: a.eval_rollout(
+                      a.config.target_return)),),
+                  ops=dt_ops, profiled=("update", dt_update))),
+            ("dt_paper", f"DT at the paper's width, d_model "
+             f"{dt_paper.d_model}, 1 head, {dt_paper.n_layers} layers "
+             f"(flash kernels), {dt_paper.steps_per_iter} steps of "
+             f"{dt_paper.batch_size}", dt_paper,
+             dict(steps=dt_paper.steps_per_iter, unit="updates",
+                  loss_key="action_ce_loss",
+                  split=(("eval_episode", lambda a, _: a.eval_rollout(
+                      a.config.target_return)),),
+                  ops=dt_ops, profiled=("update", dt_update))),
+            ("alphazero", f"AlphaZero, TicTacToe {az.games_per_iter} games "
+             f"x {az.num_simulations} simulations, {az.epochs_per_iter} "
+             f"epochs of {az.batch_size}", az,
+             dict(steps=az.games_per_iter, unit="games",
+                  loss_key="total_loss",
+                  split=(("selfplay", lambda a, _: a.selfplay()),
+                         ("update", lambda a, games: a.learn(games))),
+                  ops=(("move", az_move, 1),), profiled=("move", az_move))),
+            ("slateq", f"SlateQ, RecSlateEnv {slate.num_envs} x "
+             f"{slate.rollout_steps}, {slate.num_updates} updates of "
+             f"{slate.batch_size}", slate,
+             dict(steps=slate.num_envs * slate.rollout_steps,
+                  unit="env_steps", loss_key="td_loss",
+                  warm_until=lambda a: a.buffer["size"]
+                  >= a.config.learn_start,
+                  split=(("collect", lambda a, _: a.collect()),
+                         ("updates", lambda a, _: a.learn())),
+                  ops=(("collect_step", lambda a: a.collect,
+                        slate.rollout_steps),
+                       ("update", lambda a: a.learn, slate.num_updates)))))
+        launches = None
+        for name, what, cfg, kw in runs:
+            for kernel in kernels:
+                kernel.launches = 0
+            t0 = time.perf_counter()
+            algo, out[name], _ = breadth_run(card, what, cfg.build, **kw)
+            ran = {k.__name__: k.launches for k in kernels}
+            if name == "dt_paper":
+                if not all(ran.values()):
+                    raise AssertionError(f"DT at the paper's width launched "
+                                         f"{ran}")
+                launches = dt_paper_launches(card, algo, kernels)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ret = algo.evaluate(1)
+                episode_ms = (time.perf_counter() - t1) * 1e3
+                out[name]["eval_episode"] = {
+                    "return": ret, "ms": episode_ms,
+                    "steps_per_s": CartPole.max_episode_steps / episode_ms
+                    * 1e3}
+                log(f"  DT at the paper's width: an evaluation episode of "
+                    f"{CartPole.max_episode_steps} steps in "
+                    f"{episode_ms:.1f} ms, return {ret:g} [{card}]")
+            elif any(ran.values()):
+                raise AssertionError(f"the rl_rest path {name} launched "
+                                     f"{ran}")
+            out[name]["flash_launches"] = ran
+            out[name]["seconds"] = time.perf_counter() - t0
+            log(f"  {name}: {out[name]['seconds']:.1f} s")
+            del algo
     return launches, out
 
 
@@ -3143,6 +3704,7 @@ def main():
                                             card, ops)
     by_path["rl_breadth"], rl_breadth = timed("rl_breadth",
                                               phase_rl_breadth, card, ops)
+    by_path["rl_rest"], rl_rest = timed("rl_rest", phase_rl_rest, card, ops)
     by_path.update(moe_paths)
     by_path.update(vit_paths)
     log(f"  phase seconds: {json.dumps(seconds)}")
@@ -3159,6 +3721,7 @@ def main():
                       "seconds": seconds["offpolicy"]}))
     print(json.dumps({"rl_breadth": rl_breadth,
                       "seconds": seconds["rl_breadth"]}))
+    print(json.dumps({"rl_rest": rl_rest, "seconds": seconds["rl_rest"]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,8 +69,12 @@ def policy_params_from_numpy(policy: Any, tree: Any) -> Any:
     `SAC` algorithm (its actor / critic tree; SAC's ``log_alpha`` 0-d), an
     `IndependentPPO` or `MADDPG` algorithm (per-agent trees stacked on a
     leading agent axis), `QMIX` (``{"q", "mix"}``, the mixer's
-    hypernetworks), `MARWIL` (``{"pi", "v"}``) or `CRR` (``{"pi", "q"}``)
-    — anything with ``param_shapes()`` and ``device``.  Conv kernels go from
+    hypernetworks), `MARWIL` (``{"pi", "v"}``), `CRR` (``{"pi", "q"}``),
+    `ES` / `ARS` (the flat vector), `MAML` (its policy's tree), `Dreamer`
+    (``{"model", "actor", "critic"}``), `DT` (the trunk's stacked
+    ``layers`` and ``ln_f``, the embeddings and the head), `AlphaZero`
+    (``{"torso", "pi", "v"}``) or `SlateQ` (its item Q-network) — anything
+    with ``param_shapes()`` and ``device``.  Conv kernels go from
     the JAX package's HWIO to OIHW; nothing else changes.  Raises if the
     tree's structure or shapes are not those ``policy`` defines, naming
     the path."""

@@ -4,8 +4,10 @@ model catalog, the PPO family (PPO, A2C, PG), exploration, the replay
 buffer on the card (`replay`, `learner`), the off-policy algorithms
 (DQN, SimpleQ, Rainbow, R2D2, TD3, DDPG, SAC), IMPALA and APPO (inline),
 multi-agent RL (IndependentPPO, QMIX, MADDPG), offline RL (BC, MARWIL,
-CQL, CRR, importance-sampling estimation) and contextual bandits (LinUCB,
-LinTS).  Envs, policies, buffers and updates run on the card unless given
+CQL, CRR, importance-sampling estimation), contextual bandits (LinUCB,
+LinTS), evolution strategies (ES, ARS), meta-learning (MAML), model-based
+RL (Dreamer), the Decision Transformer (DT), AlphaZero and SlateQ.  Envs,
+policies, buffers and updates run on the card unless given
 ``device="cpu"``."""
 
 from .algorithm import Algorithm, track_episode_returns  # noqa: F401
@@ -16,6 +18,12 @@ from .bandit import (  # noqa: F401
     LinTSConfig,
     LinUCB,
     LinUCBConfig,
+)
+from .alpha_zero import (  # noqa: F401
+    AlphaZero,
+    AlphaZeroConfig,
+    TicTacToe,
+    make_mcts,
 )
 from .catalog import build_policy, register_custom_model  # noqa: F401
 from .connectors import (  # noqa: F401
@@ -36,6 +44,8 @@ from .dqn import (  # noqa: F401
     SimpleQ,
     SimpleQConfig,
 )
+from .dreamer import Dreamer, DreamerConfig  # noqa: F401
+from .dt import DT, DTConfig, episodes_from_columns  # noqa: F401
 from .env import (  # noqa: F401
     CartPole,
     GridTarget,
@@ -44,6 +54,7 @@ from .env import (  # noqa: F401
     PixelPong,
     TorchEnv,
 )
+from .es import ARS, ARSConfig, ES, ESConfig, make_eval_fn  # noqa: F401
 from .exploration import (  # noqa: F401
     EpsilonGreedy,
     GaussianActionNoise,
@@ -52,6 +63,7 @@ from .exploration import (  # noqa: F401
 )
 from .impala import APPOConfig, Impala, ImpalaConfig, vtrace  # noqa: F401
 from .maddpg import MADDPG, MADDPGConfig, SpreadLineContinuous  # noqa: F401
+from .maml import GoalDirection, MAML, MAMLConfig, MetaTaskEnv  # noqa: F401
 from .multi_agent import (  # noqa: F401
     IndependentPPO,
     IndependentPPOConfig,
@@ -84,6 +96,7 @@ from .ppo import (  # noqa: F401
     PPO,
     A2CConfig,
     Adam,
+    AdamW,
     ClippedAdam,
     PPOConfig,
     compute_gae,
@@ -95,4 +108,5 @@ from .ppo import (  # noqa: F401
 from .qmix import QMIX, QMIXConfig, mixer_apply, mixer_init  # noqa: F401
 from .r2d2 import R2D2, R2D2Config, RecurrentQNetwork  # noqa: F401
 from .sac import SAC, SACConfig  # noqa: F401
+from .slateq import RecSlateEnv, SlateQ, SlateQConfig  # noqa: F401
 from .td3 import DDPG, DDPGConfig, TD3, TD3Config  # noqa: F401

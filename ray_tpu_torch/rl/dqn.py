@@ -239,7 +239,7 @@ class DQNConfig:
 
 
 _EXTERNAL = ("needs rl/external.py (PolicyServerInput), which the port "
-             "does not have yet (ROADMAP queue 1 item 7, external.py)")
+             "does not have yet (ROADMAP queue 1 item 10, external.py)")
 
 
 class DQN(Algorithm):

@@ -33,6 +33,14 @@ Params = Any
 _LOG_2PI = math.log(2 * math.pi)
 
 
+def gumbel(shape, gen: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws: ``argmax(logits + gumbel)`` samples the
+    categorical of ``logits``, as ``jax.random.categorical`` does."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
 def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device) * scale
 
@@ -146,9 +154,7 @@ class MLPPolicy:
         normal (continuous), [n, action_size]."""
         shape = (n, self.action_size)
         if self.discrete:
-            tiny = torch.finfo(torch.float32).tiny
-            u = torch.rand(shape, generator=gen, device=gen.device)
-            return -torch.log(-torch.log(u.clamp_min(tiny)))
+            return gumbel(shape, gen)
         return torch.randn(shape, generator=gen, device=gen.device)
 
     def _sample_from(self, pi: torch.Tensor, noise: torch.Tensor):

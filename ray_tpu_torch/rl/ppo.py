@@ -105,9 +105,10 @@ class Adam:
                 "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
-               params) -> None:
-        """One step; ``grads`` in `tree_leaves` order of ``params``."""
+    def _step(self, grads: List[torch.Tensor], state: Dict[str, Any]
+              ) -> List[torch.Tensor]:
+        """Advance the moments by ``grads`` → the step m̂ / (√v̂ + eps), in
+        `tree_leaves` order."""
         b1, b2 = self.b1, self.b2
         grads = list(grads)
         state["count"] += 1
@@ -123,7 +124,14 @@ class Adam:
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(step, denom)
-        torch._foreach_add_(tree_leaves(params), step, alpha=-self.lr)
+        return step
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
+               params) -> None:
+        """One step; ``grads`` in `tree_leaves` order of ``params``."""
+        torch._foreach_add_(tree_leaves(params), self._step(grads, state),
+                            alpha=-self.lr)
 
 
 @torch.no_grad()
@@ -150,6 +158,25 @@ class ClippedAdam(Adam):
                params) -> None:
         super().update(clip_by_global_norm(grads, self.max_norm), state,
                        params)
+
+
+class AdamW(Adam):
+    """``optax.adamw(lr, weight_decay=wd)``: Adam's step plus ``wd *
+    param`` on every leaf (biases and norm scales too, optax's default
+    mask), the sum scaled by ``-lr``: ``p -= lr * (m̂ / (√v̂ + eps) + wd *
+    p)`` with the param before the step.  `torch.optim.AdamW` decays the
+    param by ``lr * wd`` apart from the Adam step, another rounding."""
+
+    def __init__(self, lr: float, weight_decay: float = 1e-4):
+        super().__init__(lr)
+        self.weight_decay = weight_decay
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
+               params) -> None:
+        step, leaves = self._step(grads, state), tree_leaves(params)
+        torch._foreach_add_(step, leaves, alpha=self.weight_decay)
+        torch._foreach_add_(leaves, step, alpha=-self.lr)
 
 
 def _make_elementwise_apply(pipe):

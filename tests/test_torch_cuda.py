@@ -52,6 +52,8 @@ CASES = [
     (1, 1024, 1024, 16, 4, 128, "bf16", True),   # head_dim 128
     (1, 300, 300, 4, 2, 64, "fp32", True),       # fp32
     (1, 300, 500, 4, 2, 128, "fp32", False),     # fp32, d 128, non-causal
+    (64, 60, 60, 1, 1, 128, "fp32", True),       # the DT at its paper's
+    (1, 60, 60, 1, 1, 128, "fp32", True),        # width: train, evaluate
 ]
 # the forward kernel's edges: a CTA owns 128 q rows, 64 per consumer
 # warpgroup, and walks 128-key tiles
@@ -697,4 +699,64 @@ def test_rl_breadth_card_matches_the_cpu(cuda, check):
     name = torch.cuda.get_device_name(0)
     with chip_smoke.fp32_ieee():
         out = getattr(chip_smoke, check)(name)
+    assert out["max_err"]
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("b", [64, 1])
+def test_flash_fwd_refuses_planted_faults_within_one_tile(cuda, b):
+    """At the Decision Transformer's shape (60 tokens, one head of 128,
+    fp32: one tile, no key tile to drop), O with its tile zeroed, with the
+    causal mask off and with the first key dropped each fail the fp32 tile
+    bound (chip_smoke.short_fwd_faults)."""
+    from ray_tpu_torch import ops
+
+    q, k, v = _qkv(0, b, 60, 60, 1, 1, 128, "fp32", cuda)
+    scale = 128 ** -0.5
+    o, _ = flash_fwd(q, k, v, True, scale)
+    faults = planted_fwd_faults(flash_fwd, q, k, v, o, True, scale)
+    faults.update(_chip_smoke().short_fwd_faults(ops, q, k, v, o, True,
+                                                 scale))
+    assert len(faults) == 3
+    for what, bad in faults.items():
+        assert tile_rel_err(bad, o) > 10 * FWD_TILE_TOL["fp32"], what
+
+
+@pytest.mark.parametrize("check", ["maml_card_equals_cpu",
+                                   "alphazero_card_equals_cpu",
+                                   "slateq_card_equals_cpu",
+                                   "dt_card_equals_cpu",
+                                   "dt_flash_against_reference"])
+def test_rl_rest_card_matches_the_cpu(cuda, check):
+    """chip_smoke.py's rl_rest checks, in full fp32: a MAML meta-step (4
+    tasks x 4 envs; the meta-gradient within chip_smoke.REST_TOL of a
+    norm), an AlphaZero self-play (4 games x 8 simulations; visits and
+    actions equal), a SlateQ iteration past the gate (rows equal but at a
+    printed near-tie, 4 updates within the bound), the Decision
+    Transformer at its paper's width (the card's flash kernels against
+    the CPU's reference attention: gradients, one AdamW step, an
+    evaluation episode's return; and flash against reference attention
+    on the card); each raises on a difference past its bound."""
+    from ray_tpu_torch import ops
+
+    chip_smoke = _chip_smoke()
+    name = torch.cuda.get_device_name(0)
+    with chip_smoke.fp32_ieee():
+        if check.startswith("dt"):
+            dataset, _ = chip_smoke.expert_dataset()
+            args = (dataset, (ops.flash_fwd, ops.flash_bwd_dq,
+                              ops.flash_bwd_dkv)) \
+                if check == "dt_flash_against_reference" else (dataset,)
+            out = getattr(chip_smoke, check)(name, *args)
+        else:
+            out = getattr(chip_smoke, check)(name)
     assert out["max_err"]

@@ -333,7 +333,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "          'rl.exploration', 'rl.replay', 'rl.dqn', 'rl.learner',\n"
         "          'rl.r2d2', 'rl.td3', 'rl.sac', 'rl.impala',\n"
         "          'rl.multi_agent', 'rl.qmix', 'rl.maddpg', 'rl.offline',\n"
-        "          'rl.bandit'):\n"
+        "          'rl.bandit', 'rl.es', 'rl.maml', 'rl.dreamer', 'rl.dt',\n"
+        "          'rl.alpha_zero', 'rl.slateq'):\n"
         "    assert 'ray_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
