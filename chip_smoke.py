@@ -2,18 +2,24 @@
 """Smoke run of the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-bwd A/flash_bwd.cu B/flash_bwd.cu ...
 
-Phases, each fatal on failure:
+The second form only builds the given flash_bwd.cu sources (another
+checkout's, with its own headers) and holds and times their fp32 backward
+kernels side by side (compare_bwd).  The first runs these phases, each
+fatal on failure:
   1. card    — name and power limit (nvidia-smi);
   2. build   — every CUDA source of the port with nvcc for sm_90a, all at
                once, timed, with nvcc's register / shared-memory report; a
                wgmma that ptxas serialises, or a spill in any instance of a
-               Hopper kernel (the forward, dQ and dK/dV), fails it;
+               Hopper kernel (the forward, dQ and dK/dV) or of the fp32
+               backward's register-blocked kernels (dQ, dK/dV), fails it;
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main paths' shapes and the edge cases, with the stated
                tolerances (elementwise and per 64-row tile), and planted
                faults in the kernels' results that the check must refuse;
-               the backward bitwise the same over two calls; kernel, plain
+               the backward bitwise the same over two calls (the bf16
+               train shape and every fp32 case); kernel, plain
                and library times from CUDA events beside the bound the card
                could reach, at the main shape (the forward at both main
                paths' shapes, with its host time per call; the backward
@@ -151,7 +157,8 @@ Phases, each fatal on failure:
 The kernel phases also hold and time each kernel at the MoE train shape,
 the ViT shapes and the DT shapes (fp32, 60 tokens, one head of 128; the
 planted faults there include the causal mask left off and the first key
-dropped, since no key tile lies inside one tile).  Each phase prints its
+dropped, since no key tile lies inside one tile), and the backward also at
+the long fp32 shape (b 1, s 1024, 32/8 heads, d 64).  Each phase prints its
 seconds.  Then one JSON line of the engine's numbers, one of the moe and
 vit phases' (with the phase seconds), one of the rl phase's, one of the
 offpolicy phase's, one of the rl_breadth phase's, one of the rl_rest
@@ -240,7 +247,7 @@ TIMED_FWD = {"serve": "main", "train": "train", "moe_train": "moe-train",
              "vit": "vit", "vit_predict": "vit-predict", "dt": "dt",
              "dt_eval": "dt-eval"}
 TIMED_BWD = {"train": "main", "moe_train": "moe-train", "vit": "vit",
-             "dt": "dt"}
+             "dt": "dt", "fp32": "fp32"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
 # the engine phase: llama-1b, DecodeEngineConfig(max_slots=8,
 # prefill_chunk_tokens=32), max_len 2048
@@ -657,9 +664,21 @@ def delta_of(o, do):
 
 def planted_faults(ops, q, k, v, o, lse, do, causal, scale, got):
     """{what: (0 dQ | 1 dK | 2 dV, tensor)}: results a wrong kernel could
-    give, each of which the check must refuse."""
+    give, each of which the check must refuse.  Within one 64-key tile
+    (the DT shapes, where zeroing the last tile zeroes everything) also
+    the causal mask left off and the first key's gradients dropped."""
     s_q, h, s_kv, h_kv = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
     faults = {}
+    if s_kv <= 64:
+        if causal:
+            delta = delta_of(o, do)
+            faults["dQ, the causal mask off"] = (0, ops.flash_bwd_dq(
+                q, k, v, do, lse, delta, False, scale))
+            faults["dV, the causal mask off"] = (2, ops.flash_bwd_dkv(
+                q, k, v, do, lse, delta, False, scale)[1])
+        bad = got[1].clone()
+        bad[:, 0] = 0
+        faults["dK, the first key dropped"] = (1, bad)
     for i, what, s in ((0, "dQ, last q tile", s_q),
                        (1, "dK, last key tile", s_kv),
                        (2, "dV, last key tile", s_kv)):
@@ -708,6 +727,13 @@ def phase_bwd_kernels(card, ops):
         if causal and s_q > s_kv and not torch.all(got[0][:, :s_q - s_kv]
                                                    == 0):
             raise AssertionError("dead rows have a gradient")
+        if dtype == torch.float32:   # no atomics: each output written once
+            again = ops.flash_bwd(q, k, v, o, lse, do, causal, scale)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"flash_bwd is not deterministic in "
+                                     f"case {name}")
+            log("             dQ, dK, dV bitwise the same over two calls")
+            del again
         refused = []
         for what, (i, bad) in planted_faults(ops, q, k, v, o, lse, do, causal,
                                              scale, got).items():
@@ -3629,9 +3655,11 @@ def host_ops(fn):
 
 
 def hopper_instance(function):
-    """'flash_bwd_dkv_hopper_kernel<64, 128>' from a mangled name; None for
-    any other kernel."""
-    found = re.search(r"(flash_[a-z_]+_hopper_kernel)I(.*?)EEv", function)
+    """'flash_bwd_dkv_hopper_kernel<64, 128>' or
+    'flash_bwd_dq_fp32_kernel<128, 16>' from a mangled name; None for any
+    other kernel (the fp32 forward's first design among them)."""
+    found = re.search(r"(flash_[a-z_]+_hopper_kernel|flash_bwd_d[a-z]+_fp32"
+                      r"_kernel)I(.*?)EEv", function)
     if not found:
         return None
     args = [("true" if value == "1" else "false") if kind == "b" else value
@@ -3642,7 +3670,8 @@ def hopper_instance(function):
 def check_ptxas(nvcc_log):
     """Fail on what ptxas says would cost a Hopper kernel its overlap: a
     wgmma serialised, or a spill in any instance of a *_hopper_kernel
-    (forward, dQ, dK/dV); print each instance's registers."""
+    (forward, dQ, dK/dV) or of the fp32 backward's register-blocked
+    kernels (dQ, dK/dV); print each instance's registers."""
     if "wgmma.mma_async instructions are serialized" in nvcc_log:
         raise AssertionError("ptxas serialised wgmma instructions")
     name = None
@@ -3665,6 +3694,121 @@ def phase_build(build):
         check_ptxas(built.log)
 
 
+# --compare-bwd: the fp32 backward of each given flash_bwd.cu, held against
+# the plain versions at these cases, then timed at these BWD_CASES shapes
+COMPARE_CASES = [("s17", 1, 17, 17, 4, 2, 64, True),
+                 ("dt", 64, 60, 60, 1, 1, 128, True),
+                 ("s_q>s_kv", 1, 300, 100, 4, 2, 128, True),
+                 ("non-causal", 1, 384, 300, 4, 2, 128, False),
+                 ("fp32", 1, 1024, 1024, 32, 8, 64, True),
+                 ("b*h 768", 64, 128, 128, 12, 4, 64, True),
+                 ("s_q<s_kv", 1, 256, 1000, 8, 2, 64, True)]
+COMPARE_TIMED = ("dt", "fp32")
+
+
+def compare_bwd(card, ops, build, sources):
+    """A/B of the fp32 backward kernels of several sources (another
+    checkout's csrc/flash_bwd.cu, built with its own headers, or this
+    tree's): nvcc all at once, each fp32 instance's registers and spills,
+    each source's dQ, dK and dV against the plain versions at
+    COMPARE_CASES, then each kernel's device time at COMPARE_TIMED in turns
+    (first source to last, then back), beside its bound."""
+    import ctypes
+
+    out = build.BUILD_DIR / "compare"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out / f"lib{i}.so"),
+         src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, src in enumerate(sources)]
+    libs = []
+    for i, (src, proc) in enumerate(zip(sources, procs)):
+        nvcc_log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{nvcc_log}")
+        name = None
+        for line in nvcc_log.splitlines():
+            if "Function properties for" in line:
+                name = hopper_instance(line.split()[-1])
+                name = name if name and "fp32" in name else None
+            elif name and "spill stores" in line:
+                spills = line.strip()
+            elif name and "Used" in line:
+                log(f"  [{i}] {name}: {line.split(':', 1)[1].strip()}; "
+                    f"{spills}")
+        lib = ctypes.CDLL(str(out / f"lib{i}.so"))
+        for kernel, n_ptr in (("flash_bwd_dq", 7), ("flash_bwd_dkv", 8)):
+            fn = getattr(lib, f"ray_tpu_{kernel}")
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        libs.append(lib)
+        log(f"  [{i}] {src}")
+
+    def call(lib, kernel, outs, q, k, v, do, lse, delta, causal, scale):
+        b, s_q, h, d = q.shape
+        err = getattr(lib, f"ray_tpu_{kernel}")(
+            *[t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)], 1, b,
+            h, k.shape[2], s_q, k.shape[1], d, int(causal), scale,
+            q.device.index, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{kernel}: {err}")
+        return outs
+
+    def kernels(lib):
+        return (lambda q, k, v, *rest: call(lib, "flash_bwd_dq",
+                                            (torch.empty_like(q),), q, k, v,
+                                            *rest),
+                lambda q, k, v, *rest: call(lib, "flash_bwd_dkv",
+                                            (torch.empty_like(k),
+                                             torch.empty_like(v)), q, k, v,
+                                            *rest))
+
+    fp32 = torch.float32
+    for name, b, s_q, s_kv, h, h_kv, d, causal in COMPARE_CASES:
+        q, k, v = qkv(2, b, s_q, s_kv, h, h_kv, d, fp32)
+        do = randn(3, (b, s_q, h, d), fp32)
+        scale = d ** -0.5
+        o, lse = ops.flash_fwd(q, k, v, causal, scale)
+        args = (q, k, v, do, lse, delta_of(o, do), causal, scale)
+        want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                             scale)
+        for i, lib in enumerate(libs):
+            dq, dkv = kernels(lib)
+            got = (*dq(*args), *dkv(*args))
+            on_card(f"source {i}, case {name}")
+            tiles = [bwd_matches(g, w, fp32) for g, w in zip(got, want)]
+            if not all(ok for ok, _ in tiles):
+                raise AssertionError(f"source {i} disagrees with the plain "
+                                     f"version in case {name}")
+        log(f"  {name}: every source agrees with the plain version")
+    for shape in COMPARE_TIMED:
+        _, b, s_q, s_kv, h, h_kv, d, dtype, causal = named(BWD_CASES, shape)
+        q, k, v = qkv(5, b, s_q, s_kv, h, h_kv, d, fp32)
+        do = randn(6, (b, s_q, h, d), fp32)
+        scale = d ** -0.5
+        o, lse = ops.flash_fwd(q, k, v, causal, scale)
+        args = (q, k, v, do, lse, delta_of(o, do), causal, scale)
+        for which, kname, counts in (
+                (0, "flash_bwd_dq", dict(products=3, q_like=3, kv_like=2,
+                                         stats=2)),
+                (1, "flash_bwd_dkv", dict(products=4, q_like=2, kv_like=4,
+                                          stats=2))):
+            bound, _ = attention_bound(b, s_q, s_kv, h, h_kv, d, dtype,
+                                       causal, **counts)
+            times = {}
+            order = list(range(len(libs)))
+            for i in order + order[::-1]:
+                fn = kernels(libs[i])[which]
+                times.setdefault(i, []).append(device_ms(
+                    lambda: fn(*args), kernel_name(kname, dtype), calls=20))
+            log(f"  {shape} {kname} (bound {bound:.4f} ms) device ms: "
+                + "; ".join(f"[{i}] {min(t):.4f}-{max(t):.4f} "
+                            f"({100 * bound / min(t):.1f}%)"
+                            for i, t in times.items()) + f" [{card}]")
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3679,6 +3823,8 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"== card: {card}")
     log(f"   torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if sys.argv[1:2] == ["--compare-bwd"]:
+        return compare_bwd(card, ops, build, sys.argv[2:])
 
     seconds = {}
 

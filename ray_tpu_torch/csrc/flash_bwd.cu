@@ -74,12 +74,41 @@
 // 64 + 64 + 2 KB at d 64, 128 + 64 + 1 KB at d 128; dQ: Q and dO, 3 x K,
 // 2 x V = 64 + 48 + 32 KB at d 64, 64 + 96 + 64 KB at d 128.
 //
-// fp32 inputs take the first design, scalar fp32 FMAs (flash_common.cuh):
-// wgmma has no exact fp32 form, and TF32 would break fp32's 1e-4
-// tolerance.  dQ: one CTA per (batch, head, 64-row q tile); dK/dV: one CTA
-// per (batch, KV head, 64-key tile) looping over the group's heads and the
-// q tiles; each warp owns 16 rows, every product goes through shared
-// memory, loads are synchronous.
+// fp32 inputs take their own kernels (flash_bwd_dq_fp32_kernel,
+// flash_bwd_dkv_fp32_kernel), the same two TPU kernels' function in exact
+// fp32 FMAs on the CUDA cores: wgmma has no exact fp32 form, and TF32 (or
+// 3xTF32) would break fp32's 1e-4 tolerance.  Bounds (67 TFLOP/s fp32,
+// 3.35 TB/s): at the Decision Transformer's shape (b 64, s 60, one head of
+// 128, causal) dQ 0.0029 ms and dK/dV 0.0035 ms, both bytes (its FMAs at
+// peak take 1.3 and 1.8 us); at b 1, s 1024, 32/8 heads, d 64, causal (16.8
+// M visible pairs) dQ 0.0962 ms (6.45 GFLOP) and dK/dV 0.1283 ms (8.6
+// GFLOP), both operations.  The first design (one CTA of 4 warps per 64-row
+// tile, a lane per row, every product written to shared memory and read
+// back, synchronous loads) filled 64 of 132 SMs at the DT shape with one
+// 4-warp CTA each (186-204 KB of shared memory), and ran each output as one
+// chain of D dependent FMAs with two shared loads an FMA: 3-8% of the
+// bound at both shapes.  Here (flash_common.cuh, the register-blocked section):
+//  - The grid fills the card without sums across CTAs: a dQ CTA owns 64 q
+//    rows at d 64 (32 at d 128), halved down to 16 while the grid would
+//    not give each SM two CTAs; a dK/dV CTA owns 32 keys, or 16 on such
+//    grids (DT: 256 CTAs of 16 rows or keys).  CTAs are numbered with the
+//    heads fastest and the longest causal walks first.
+//  - Products are register-blocked: each thread accumulates a micro-tile
+//    (up to 4 x 4 of S and of dP in dQ; 4 x 4 of S^T or of dP^T in dK/dV,
+//    where one half of the CTA computes each; 32 floats of dK and of dV,
+//    the q rows of each tile split between warp groups whose sums are
+//    added once at the end; up to 8 x 4 of dQ), reading 16-byte
+//    operands from rows padded against bank conflicts.  dQ forms P and dS
+//    in registers and writes only dS to shared memory; dK/dV writes P^T and
+//    dP^T, and dS^T forms in an elementwise pass.
+//  - The next K/V tile (dQ) or Q/dO/LSE/delta tile (dK/dV) is copied with
+//    cp.async into the second of two stages while the current one is used.
+//    46-112 KB of shared memory a CTA: two CTAs (8 warps) an SM.
+//  - The exponent is the bf16 kernels' one FFMA and one EX2.
+// Still bound by issue and by shared-memory operand traffic (PERF.md): at
+// b 1, s 1024, d 64 dK/dV holds 8 floats of S^T and dP^T a thread a key
+// step, where an 8 x 8 micro-tile would need 4 x the q rows in shared
+// memory.
 
 #include "flash_hopper.cuh"
 
@@ -770,36 +799,101 @@ int launch_dq_hopper(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// -- fp32: scalar FMAs -------------------------------------------------------
+// -- fp32: register-blocked scalar FMAs -------------------------------------
 
-// Shared-memory layout: A and B are the CTA's own tiles (Q, dO for dQ;
-// K, V for dK/dV), C and E the tiles it walks over (K, V; Q, dO); F the
-// fp32 products, one 16-row slice per warp; P and DS the P and dS tiles;
-// R the LSE and delta of the current q tile (dK/dV only).  Rows carry 16
-// bytes of padding against bank conflicts.
-template <int D, bool DKV>
-struct Fp32Layout {
-  static constexpr int LDT = D + 4;
-  static constexpr int LDP = BLOCK_N + 4;
-  static constexpr int LDF = (D > BLOCK_N ? D : BLOCK_N) + 4;
-  static constexpr size_t tile = sizeof(float) * 64 * LDT;
-  static constexpr size_t a_off = 0;
-  static constexpr size_t b_off = a_off + tile;
-  static constexpr size_t c_off = b_off + tile;
-  static constexpr size_t e_off = c_off + tile;
-  static constexpr size_t f_off = e_off + tile;
-  static constexpr size_t ds_off = f_off + sizeof(float) * 64 * LDF;
-  static constexpr size_t p_off = ds_off + sizeof(float) * 64 * LDP;
-  static constexpr size_t r_off = p_off + (DKV ? sizeof(float) * 64 * LDP : 0);
-  static constexpr size_t bytes = r_off + (DKV ? sizeof(float) * 2 * 64 : 0);
+// dQ: a CTA owns BM q rows of one (batch, head) and walks the keys in
+// tiles of DQ_BN; K and V tiles stream through two cp.async stages.  Each
+// thread computes its elements of both S and dP, so P and dS form in
+// registers and only dS goes to shared memory.  Shared memory: Q, dO (BM
+// rows), 2 x (K, V) (DQ_BN rows), dS (BM x DQ_BN, rows padded by 8 floats).
+constexpr int DQ_BN = 32;
+
+template <int D, int BM>
+struct DqFp32 {
+  static constexpr int LDT = D + 4, LDS = DQ_BN + 8;
+  using S = NtGrid<BM, DQ_BN>;  // S, dP: rows x keys
+  using G = NnGrid<BM, D>;      // dQ: rows x D
+  static constexpr size_t q_off = 0;
+  static constexpr size_t do_off = q_off + sizeof(float) * BM * LDT;
+  static constexpr size_t k_off = do_off + sizeof(float) * BM * LDT;
+  static constexpr size_t v_off = k_off + sizeof(float) * 2 * DQ_BN * LDT;
+  static constexpr size_t ds_off = v_off + sizeof(float) * 2 * DQ_BN * LDT;
+  static constexpr size_t bytes = ds_off + sizeof(float) * BM * LDS;
 };
 
-// Grid: (ceil(s_q / BLOCK_M), h, b).  Inputs are contiguous [b, s, heads, D]
-// (q, dout, dq: h heads; k, v: h_kv heads); LSE and delta are [b, h, s_q].
-// Lane l of a warp owns row l / 2 of the warp's 16 and half l % 2 of the
-// columns of each product.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// dK/dV: a CTA owns BN keys of one (batch, KV head) and walks, for each
+// query head of the group, the q tiles of QM rows from the first that sees
+// its keys; Q, dO, LSE and delta stream through two cp.async stages.  One
+// half of the CTA (HALF threads) computes S^T and P^T, the other dP^T, each
+// over the whole tile, so that a thread holds twice the elements of one
+// product rather than its share of both; P^T and dP^T meet in shared
+// memory, where dS^T forms in an elementwise pass.  The gradient products
+// split each q tile's rows between SPLIT groups of warps, so that a thread
+// holds 32 floats of dK and of dV (4 keys x 8 columns or 8 x 4: 0.375
+// operand floats an FMA), and the groups' sums are added once, in a fixed
+// order, at the end.  Shared memory: K, V (BN rows), 2 x (Q, dO) (QM rows;
+// the groups' sums at the end), P^T and dP^T / dS^T (BN x QM, rows padded
+// by 8 floats), 2 x (LSE, delta).
+constexpr int HALF = F32_THREADS / 2;
+
+template <int D, int BN>
+struct DkvFp32 {
+  static constexpr int QM = D == 64 ? 64 : 32;
+  static constexpr int LDT = D + 4, LDS = QM + 8;
+  static constexpr int GROUP = BN * D / 32 < F32_THREADS ? BN * D / 32
+                                                         : F32_THREADS;
+  static constexpr int SPLIT = F32_THREADS / GROUP, ROWS = QM / SPLIT;
+  using S = NtGrid<BN, QM, HALF>;   // S^T or dP^T: keys x rows
+  using G = NnGrid<BN, D, GROUP>;   // dK, dV: keys x D, a group's share
+  static constexpr size_t k_off = 0;
+  static constexpr size_t v_off = k_off + sizeof(float) * BN * LDT;
+  static constexpr size_t q_off = v_off + sizeof(float) * BN * LDT;
+  static constexpr size_t do_off = q_off + sizeof(float) * 2 * QM * LDT;
+  static constexpr size_t pt_off = do_off + sizeof(float) * 2 * QM * LDT;
+  static constexpr size_t ds_off = pt_off + sizeof(float) * BN * LDS;
+  static constexpr size_t lse_off = ds_off + sizeof(float) * BN * LDS;
+  static constexpr size_t dl_off = lse_off + sizeof(float) * 2 * QM;
+  static constexpr size_t bytes = dl_off + sizeof(float) * 2 * QM;
+  static_assert(GROUP % 32 == 0 && ROWS % 4 == 0 &&
+                    sizeof(float) * SPLIT * 2 * BN * D <= pt_off - q_off,
+                "the groups' sums must fit where Q and dO were");
+};
+
+// Two CTAs an SM (8 warps): every configuration's shared memory fits twice
+// into the SM's 228 KB.
+static_assert(2 * (DqFp32<64, 64>::bytes + 1024) <= 233472 &&
+                  2 * (DqFp32<128, 32>::bytes + 1024) <= 233472 &&
+                  2 * (DkvFp32<64, 32>::bytes + 1024) <= 233472 &&
+                  2 * (DkvFp32<128, 32>::bytes + 1024) <= 233472,
+              "an fp32 configuration no longer fits twice an SM");
+
+// dS^T = P^T (dP^T - delta) sm_scale over a tile of R keys x C q rows in
+// shared memory (rows LD floats apart), in place of dP^T; delta is per q
+// row.
+template <int R, int C, int LD>
+__device__ __forceinline__ void scores_to_ds(const float* p, float* dp,
+                                             const float* delta,
+                                             float sm_scale) {
+  for (int f = threadIdx.x; f < R * C / 4; f += F32_THREADS) {
+    const int r = f / (C / 4), c = (f % (C / 4)) * 4;
+    const float4 pv = *reinterpret_cast<const float4*>(p + r * LD + c);
+    float4* out = reinterpret_cast<float4*>(dp + r * LD + c);
+    const float4 dv = *out;
+    const float4 dl = *reinterpret_cast<const float4*>(delta + c);
+    *out = make_float4(pv.x * (dv.x - dl.x) * sm_scale,
+                       pv.y * (dv.y - dl.y) * sm_scale,
+                       pv.z * (dv.z - dl.z) * sm_scale,
+                       pv.w * (dv.w - dl.w) * sm_scale);
+  }
+}
+
+// Grid: one CTA per (batch, head, BM-row q tile), numbered with the heads
+// and batches fastest and, under causality, the last q tiles (the longest
+// walks) first, so that the walks left for the last CTAs are the shortest.
+// Inputs are contiguous [b, s, heads, D] (q, dout, dq: h heads; k, v: h_kv
+// heads); LSE and delta are [b, h, s_q].
+template <int D, int BM>
+__global__ void __launch_bounds__(F32_THREADS, 2)
 flash_bwd_dq_fp32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -808,95 +902,115 @@ flash_bwd_dq_fp32_kernel(const float* __restrict__ q,
                          const float* __restrict__ delta,
                          float* __restrict__ dq, int h, int h_kv, int s_q,
                          int s_kv, int causal, float sm_scale) {
-  using L = Fp32Layout<D, false>;
+  using L = DqFp32<D, BM>;
+  using S = typename L::S;
+  using G = typename L::G;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem + L::a_off);
-  float* do_s = reinterpret_cast<float*>(smem + L::b_off);
-  float* k_s = reinterpret_cast<float*>(smem + L::c_off);
-  float* v_s = reinterpret_cast<float*>(smem + L::e_off);
-  float* f_s = reinterpret_cast<float*>(smem + L::f_off);
+  float* q_s = reinterpret_cast<float*>(smem + L::q_off);
+  float* do_s = reinterpret_cast<float*>(smem + L::do_off);
+  float* k_s = reinterpret_cast<float*>(smem + L::k_off);
+  float* v_s = reinterpret_cast<float*>(smem + L::v_off);
   float* ds_s = reinterpret_cast<float*>(smem + L::ds_off);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BLOCK_M;  // longest first
-  const int hh = blockIdx.y, bb = blockIdx.z;
+  const int n_qt = (s_q + BM - 1) / BM, bh_all = gridDim.x / n_qt;
+  const int rank = blockIdx.x / bh_all, bh = blockIdx.x % bh_all;
+  const int q0 = (causal ? n_qt - 1 - rank : rank) * BM;
+  const int hh = bh % h, bb = bh / h;
   const int kvh = hh / (h / h_kv);
   const int q_offset = s_kv - s_q;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = lane >> 1, half = lane & 1;
-  const int q_idx = q0 + warp * 16 + r;
-  const bool row_ok = q_idx < s_q;
   const long long q_stride = (long long)h * D, kv_stride = (long long)h_kv * D;
-  const long long q_base = (long long)bb * s_q * q_stride + (long long)hh * D;
-  const long long kv_base = (long long)bb * s_kv * kv_stride + (long long)kvh * D;
-  const long long stat = ((long long)bb * h + hh) * s_q + q_idx;
-  const float lse_r = row_ok ? lse[stat] : 0.0f;
-  const float delta_r = row_ok ? delta[stat] : 0.0f;
+  const float* q_b = q + (long long)bb * s_q * q_stride + (long long)hh * D;
+  const float* do_b = dout + (long long)bb * s_q * q_stride + (long long)hh * D;
+  const float* k_b = k + (long long)bb * s_kv * kv_stride + (long long)kvh * D;
+  const float* v_b = v + (long long)bb * s_kv * kv_stride + (long long)kvh * D;
 
-  load_tile<float, D, BLOCK_M>(q_s, L::LDT, q + q_base, q_stride, q0, s_q);
-  load_tile<float, D, BLOCK_M>(do_s, L::LDT, dout + q_base, q_stride, q0,
-                               s_q);
-
-  int n_tiles = (s_kv + BLOCK_N - 1) / BLOCK_N;
-  if (causal) {  // skip k-tiles wholly above the diagonal of this q tile
-    const int last_key = min(q0 + BLOCK_M, s_q) - 1 + q_offset;
-    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / BLOCK_N + 1);
+  int n_tiles = (s_kv + DQ_BN - 1) / DQ_BN;
+  if (causal) {  // skip key tiles wholly above the diagonal of these rows
+    const int last_key = min(q0 + BM, s_q) - 1 + q_offset;
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / DQ_BN + 1);
   }
+  load_tile_async<D, BM>(q_s, q_b, q_stride, q0, s_q);
+  load_tile_async<D, BM>(do_s, do_b, q_stride, q0, s_q);
+  if (n_tiles > 0) {
+    load_tile_async<D, DQ_BN>(k_s, k_b, kv_stride, 0, s_kv);
+    load_tile_async<D, DQ_BN>(v_s, v_b, kv_stride, 0, s_kv);
+  }
+  cp_async_commit();
 
-  const float* q_w = q_s + warp * 16 * L::LDT;
-  const float* do_w = do_s + warp * 16 * L::LDT;
-  float* ds_w = ds_s + warp * 16 * L::LDP;
-  float* f_w = f_s + warp * 16 * L::LDF;
-  const float* frow = f_w + r * L::LDF + half * (BLOCK_N / 2);
-  float acc[D / 2];
+  // -LSE log2 e and delta of this thread's rows of S
+  const int2 sp = grid_pos<S::TX>(threadIdx.x);
+  const float scale_log2 = sm_scale * LOG2E;
+  const long long stat = ((long long)bb * h + hh) * s_q;
+  float nl[S::TM], dl[S::TM];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
+  for (int i = 0; i < S::TM; ++i) {
+    const int row = q0 + sp.y + i * S::TY;
+    nl[i] = row < s_q ? -lse[stat + row] * LOG2E : 0.0f;
+    dl[i] = row < s_q ? delta[stat + row] : 0.0f;
+  }
+  const int2 gp = grid_pos<G::TX>(threadIdx.x);
+  float4 acc[G::TM][G::TV];
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < G::TV; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous K, V tile
-    load_tile<float, D, BLOCK_N>(k_s, L::LDT, k + kv_base, kv_stride, k0,
-                                 s_kv);
-    load_tile<float, D, BLOCK_N>(v_s, L::LDT, v + kv_base, kv_stride, k0,
-                                 s_kv);
+    // tile t has landed, and every thread is done with tile t - 1's stage
+    // and with dS
+    cp_async_wait<0>();
     __syncthreads();
-
-    warp_nt<D>(q_w, L::LDT, k_s, L::LDT, f_w, L::LDF, lane);  // S
-    __syncwarp();
-    float p[BLOCK_N / 2];
-    const int row_pos = q_idx + q_offset;
-#pragma unroll
-    for (int j = 0; j < BLOCK_N / 2; ++j) {
-      const int col = k0 + half * (BLOCK_N / 2) + j;
-      const bool visible = row_ok && col < s_kv && (!causal || row_pos >= col);
-      p[j] = visible ? expf(frow[j] * sm_scale - lse_r) : 0.0f;
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      const int nx = (st ^ 1) * DQ_BN * L::LDT;
+      load_tile_async<D, DQ_BN>(k_s + nx, k_b, kv_stride, (t + 1) * DQ_BN,
+                                s_kv);
+      load_tile_async<D, DQ_BN>(v_s + nx, v_b, kv_stride, (t + 1) * DQ_BN,
+                                s_kv);
     }
-    __syncwarp();
-    warp_nt<D>(do_w, L::LDT, v_s, L::LDT, f_w, L::LDF, lane);  // dP
-    __syncwarp();
-    float* dsrow = ds_w + r * L::LDP + half * (BLOCK_N / 2);
+    cp_async_commit();
+    const float* k_t = k_s + st * DQ_BN * L::LDT;
+    const float* v_t = v_s + st * DQ_BN * L::LDT;
+
+    float s[S::TM][S::TN], dp[S::TM][S::TN];
+    nt_pair<D, S::TM, S::TN, S::TY, S::TX>(s, dp, q_s, k_t, do_s, v_t, sp.y,
+                                           sp.x);
+    const int k0 = t * DQ_BN;
 #pragma unroll
-    for (int j = 0; j < BLOCK_N / 2; ++j)
-      dsrow[j] = p[j] * (frow[j] - delta_r) * sm_scale;
-    __syncwarp();
-    warp_nn<D>(ds_w, L::LDP, k_s, L::LDT, f_w, L::LDF, lane);  // dS K
-    __syncwarp();
-    const float* part = f_w + r * L::LDF + half * (D / 2);
+    for (int i = 0; i < S::TM; ++i) {
+      const int r = sp.y + i * S::TY, row = q0 + r;
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] += part[j];
+      for (int j = 0; j < S::TN; ++j) {
+        const int c = sp.x + j * S::TX, col = k0 + c;
+        const bool visible = row < s_q && col < s_kv &&
+                             (!causal || row + q_offset >= col);
+        const float p = visible ? ex2(fmaf(s[i][j], scale_log2, nl[i])) : 0.f;
+        ds_s[r * L::LDS + c] = p * (dp[i][j] - dl[i]) * sm_scale;
+      }
+    }
+    __syncthreads();
+    nn_acc<DQ_BN, L::LDS, D, G::TM, G::TV, G::TY, G::TX>(acc, ds_s, k_t,
+                                                        gp.y, gp.x);
   }
 
-  if (row_ok) {
-    float* out = dq + q_base + (long long)q_idx * q_stride + half * (D / 2);
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) out[j] = acc[j];
+  for (int i = 0; i < G::TM; ++i) {
+    const int row = q0 + gp.y + i * G::TY;
+    if (row >= s_q) continue;
+    float* out = dq + (long long)bb * s_q * q_stride + (long long)hh * D +
+                 (long long)row * q_stride;
+#pragma unroll
+    for (int j = 0; j < G::TV; ++j)
+      *reinterpret_cast<float4*>(out + (gp.x + j * G::TX) * 4) = acc[i][j];
   }
 }
 
-// Grid: (ceil(s_kv / BLOCK_N), h_kv, b).  Layouts as the dQ kernel; dk and
-// dv are [b, s_kv, h_kv, D].  Here a warp's 16 rows are keys and the
-// columns of S^T and dP^T are the q tile's rows.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// Grid: one CTA per (batch, KV head, BN-key slice), numbered with the KV
+// heads and batches fastest and the first slices (the longest walks under
+// causality) first.  dk and dv are [b, s_kv, h_kv, D].  In S^T and dP^T a
+// thread's rows are keys and its columns the q tile's rows.
+template <int D, int BN>
+__global__ void __launch_bounds__(F32_THREADS, 2)
 flash_bwd_dkv_fp32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -906,120 +1020,168 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int h, int h_kv, int s_q, int s_kv, int causal,
                           float sm_scale) {
-  using L = Fp32Layout<D, true>;
+  using L = DkvFp32<D, BN>;
+  using S = typename L::S;
+  using G = typename L::G;
+  constexpr int QM = L::QM;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* k_s = reinterpret_cast<float*>(smem + L::a_off);
-  float* v_s = reinterpret_cast<float*>(smem + L::b_off);
-  float* q_s = reinterpret_cast<float*>(smem + L::c_off);
-  float* do_s = reinterpret_cast<float*>(smem + L::e_off);
-  float* f_s = reinterpret_cast<float*>(smem + L::f_off);
+  float* k_s = reinterpret_cast<float*>(smem + L::k_off);
+  float* v_s = reinterpret_cast<float*>(smem + L::v_off);
+  float* q_s = reinterpret_cast<float*>(smem + L::q_off);
+  float* do_s = reinterpret_cast<float*>(smem + L::do_off);
+  float* pt_s = reinterpret_cast<float*>(smem + L::pt_off);
   float* ds_s = reinterpret_cast<float*>(smem + L::ds_off);
-  float* p_s = reinterpret_cast<float*>(smem + L::p_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::r_off);
-  float* delta_s = lse_s + BLOCK_M;
+  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
+  float* dl_s = reinterpret_cast<float*>(smem + L::dl_off);
 
-  const int k0 = blockIdx.x * BLOCK_N, kvh = blockIdx.y, bb = blockIdx.z;
+  const int bh_all = gridDim.x / ((s_kv + BN - 1) / BN);
+  const int k0 = blockIdx.x / bh_all * BN, bh = blockIdx.x % bh_all;
+  const int kvh = bh % h_kv, bb = bh / h_kv;
   const int group = h / h_kv;
   const int q_offset = s_kv - s_q;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = lane >> 1, half = lane & 1;
-  const int key = k0 + warp * 16 + r;
   const long long q_stride = (long long)h * D, kv_stride = (long long)h_kv * D;
-  const long long kv_base = (long long)bb * s_kv * kv_stride + (long long)kvh * D;
-
-  load_tile<float, D, BLOCK_N>(k_s, L::LDT, k + kv_base, kv_stride, k0, s_kv);
-  load_tile<float, D, BLOCK_N>(v_s, L::LDT, v + kv_base, kv_stride, k0, s_kv);
+  const long long kv_base =
+      (long long)bb * s_kv * kv_stride + (long long)kvh * D;
 
   // the first q tile with a row that sees key k0: row + q_offset >= k0
-  const int n_q = (s_q + BLOCK_M - 1) / BLOCK_M;
-  int qt0 = 0;
-  if (causal) qt0 = k0 - q_offset <= 0 ? 0 : (k0 - q_offset) / BLOCK_M;
+  const int n_q = (s_q + QM - 1) / QM;
+  const int qt0 = causal && k0 - q_offset > 0 ? (k0 - q_offset) / QM : 0;
+  const int per_head = n_q - qt0 > 0 ? n_q - qt0 : 0;
+  const int steps = group * per_head;
 
-  const float* k_w = k_s + warp * 16 * L::LDT;
-  const float* v_w = v_s + warp * 16 * L::LDT;
-  float* p_w = p_s + warp * 16 * L::LDP;
-  float* ds_w = ds_s + warp * 16 * L::LDP;
-  float* f_w = f_s + warp * 16 * L::LDF;
-  const float* frow = f_w + r * L::LDF + half * (BLOCK_M / 2);
-  float* prow = p_w + r * L::LDP + half * (BLOCK_M / 2);
-  float* dsrow = ds_w + r * L::LDP + half * (BLOCK_M / 2);
-  const float* part = f_w + r * L::LDF + half * (D / 2);
-  float acc_k[D / 2], acc_v[D / 2];
-#pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc_k[j] = acc_v[j] = 0.0f;
-
-  for (int g = 0; g < group; ++g) {
-    const int hh = kvh * group + g;
-    const long long q_base = (long long)bb * s_q * q_stride + (long long)hh * D;
+  // step i: query head kvh * group + i / per_head, q tile qt0 + i % per_head
+  auto issue = [&](int i, int stage) {
+    const int hh = kvh * group + i / per_head;
+    const int q0 = (qt0 + i % per_head) * QM;
+    const long long base = (long long)bb * s_q * q_stride + (long long)hh * D;
+    load_tile_async<D, QM>(q_s + stage * QM * L::LDT, q + base, q_stride, q0,
+                           s_q);
+    load_tile_async<D, QM>(do_s + stage * QM * L::LDT, dout + base, q_stride,
+                           q0, s_q);
     const long long stat = ((long long)bb * h + hh) * s_q;
-    for (int qt = qt0; qt < n_q; ++qt) {
-      const int q0 = qt * BLOCK_M;
-      __syncthreads();  // every warp is done with the previous q tile
-      load_tile<float, D, BLOCK_M>(q_s, L::LDT, q + q_base, q_stride, q0,
-                                   s_q);
-      load_tile<float, D, BLOCK_M>(do_s, L::LDT, dout + q_base, q_stride, q0,
-                                   s_q);
-      for (int i = threadIdx.x; i < BLOCK_M; i += THREADS) {
-        const bool ok = q0 + i < s_q;
-        lse_s[i] = ok ? lse[stat + q0 + i] : 0.0f;
-        delta_s[i] = ok ? delta[stat + q0 + i] : 0.0f;
-      }
-      __syncthreads();
-
-      warp_nt<D>(k_w, L::LDT, q_s, L::LDT, f_w, L::LDF, lane);  // S^T
-      __syncwarp();
-      float p[BLOCK_M / 2];
-#pragma unroll
-      for (int j = 0; j < BLOCK_M / 2; ++j) {
-        const int i = half * (BLOCK_M / 2) + j, row = q0 + i;
-        const bool visible = key < s_kv && row < s_q &&
-                             (!causal || row + q_offset >= key);
-        p[j] = visible ? expf(frow[j] * sm_scale - lse_s[i]) : 0.0f;
-        prow[j] = p[j];
-      }
-      __syncwarp();
-      warp_nt<D>(v_w, L::LDT, do_s, L::LDT, f_w, L::LDF, lane);  // dP^T
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < BLOCK_M / 2; ++j) {
-        const int i = half * (BLOCK_M / 2) + j;
-        dsrow[j] = p[j] * (frow[j] - delta_s[i]) * sm_scale;
-      }
-      __syncwarp();
-      warp_nn<D>(p_w, L::LDP, do_s, L::LDT, f_w, L::LDF, lane);  // P^T dO
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc_v[j] += part[j];
-      __syncwarp();
-      warp_nn<D>(ds_w, L::LDP, q_s, L::LDT, f_w, L::LDF, lane);  // dS^T Q
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc_k[j] += part[j];
+    for (int r = threadIdx.x; r < QM; r += F32_THREADS) {
+      const bool ok = q0 + r < s_q;
+      cp_async4(lse_s + stage * QM + r, lse + stat + (ok ? q0 + r : 0), ok);
+      cp_async4(dl_s + stage * QM + r, delta + stat + (ok ? q0 + r : 0), ok);
     }
+  };
+  load_tile_async<D, BN>(k_s, k + kv_base, kv_stride, k0, s_kv);
+  load_tile_async<D, BN>(v_s, v + kv_base, kv_stride, k0, s_kv);
+  if (steps > 0) issue(0, 0);
+  cp_async_commit();
+
+  // the first half computes S^T and P^T, the second dP^T
+  const bool scores = threadIdx.x < HALF;
+  const int2 sp = grid_pos<S::TX>(threadIdx.x % HALF);
+  const int group_id = threadIdx.x / L::GROUP;  // its rows of each q tile
+  const int2 gp = grid_pos<G::TX>(threadIdx.x % L::GROUP);
+  const float scale_log2 = sm_scale * LOG2E;
+  float4 acc_k[G::TM][G::TV], acc_v[G::TM][G::TV];
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < G::TV; ++j)
+      acc_k[i][j] = acc_v[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int i = 0; i < steps; ++i) {
+    // step i has landed, and every thread is done with step i - 1's stage
+    // and with P^T, dS^T
+    cp_async_wait<0>();
+    __syncthreads();
+    const int st = i & 1;
+    if (i + 1 < steps) issue(i + 1, st ^ 1);
+    cp_async_commit();
+    const float* q_t = q_s + st * QM * L::LDT;
+    const float* do_t = do_s + st * QM * L::LDT;
+    const float* lse_t = lse_s + st * QM;
+    const float* dl_t = dl_s + st * QM;
+    const int q0 = (qt0 + i % per_head) * QM;
+
+    float s[S::TM][S::TN];
+    nt_prod<D, S::TM, S::TN, S::TY, S::TX>(s, scores ? k_s : v_s,
+                                           scores ? q_t : do_t, sp.y, sp.x);
+    if (scores) {
+      float nl[S::TN];
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j)
+        nl[j] = -lse_t[sp.x + j * S::TX] * LOG2E;
+#pragma unroll
+      for (int a = 0; a < S::TM; ++a) {
+        const int r = sp.y + a * S::TY, key = k0 + r;
+#pragma unroll
+        for (int j = 0; j < S::TN; ++j) {
+          const int c = sp.x + j * S::TX, row = q0 + c;
+          const bool visible = key < s_kv && row < s_q &&
+                               (!causal || row + q_offset >= key);
+          pt_s[r * L::LDS + c] =
+              visible ? ex2(fmaf(s[a][j], scale_log2, nl[j])) : 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < S::TM; ++a)
+#pragma unroll
+        for (int j = 0; j < S::TN; ++j)
+          ds_s[(sp.y + a * S::TY) * L::LDS + sp.x + j * S::TX] = s[a][j];
+    }
+    __syncthreads();
+    scores_to_ds<BN, QM, L::LDS>(pt_s, ds_s, dl_t, sm_scale);
+    __syncthreads();
+    const int m0 = group_id * L::ROWS;
+    nn_acc<L::ROWS, L::LDS, D, G::TM, G::TV, G::TY, G::TX>(
+        acc_v, pt_s + m0, do_t + m0 * L::LDT, gp.y, gp.x);
+    nn_acc<L::ROWS, L::LDS, D, G::TM, G::TV, G::TY, G::TX>(
+        acc_k, ds_s + m0, q_t + m0 * L::LDT, gp.y, gp.x);
   }
 
-  if (key < s_kv) {
-    const long long off = kv_base + (long long)key * kv_stride + half * (D / 2);
+  // every group's sums to shared memory (where Q and dO were), then each
+  // output float4 as the sum over the groups in order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* sums = reinterpret_cast<float*>(smem + L::q_off);  // [SPLIT][2][BN][D]
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) {
-      dk[off + j] = acc_k[j];
-      dv[off + j] = acc_v[j];
+  for (int a = 0; a < G::TM; ++a)
+#pragma unroll
+    for (int j = 0; j < G::TV; ++j) {
+      const int at = (gp.y + a * G::TY) * D + (gp.x + j * G::TX) * 4;
+      *reinterpret_cast<float4*>(sums + (group_id * 2) * BN * D + at) =
+          acc_k[a][j];
+      *reinterpret_cast<float4*>(sums + (group_id * 2 + 1) * BN * D + at) =
+          acc_v[a][j];
     }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * BN * D / 4; i += F32_THREADS) {
+    const int which = i / (BN * D / 4), at = (i % (BN * D / 4)) * 4;
+    const int key = k0 + at / D;
+    float4 sum = *reinterpret_cast<const float4*>(sums + which * BN * D + at);
+#pragma unroll
+    for (int g = 1; g < L::SPLIT; ++g) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          sums + (g * 2 + which) * BN * D + at);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    if (key < s_kv)
+      *reinterpret_cast<float4*>((which ? dv : dk) + kv_base +
+                                 (long long)key * kv_stride + at % D) = sum;
   }
 }
 
-template <int D>
-int launch_dq_fp32(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dq, int b, int h, int h_kv, int s_q, int s_kv,
-                   int causal, float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = Fp32Layout<D, false>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <int D, int BM>
+int launch_dq_fp32_rows(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dq, int b, int h, int h_kv, int s_q, int s_kv,
+                        int causal, float sm_scale, cudaStream_t stream) {
+  constexpr size_t smem = DqFp32<D, BM>::bytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dq_fp32_kernel<D, BM>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s_q + BLOCK_M - 1) / BLOCK_M, h, b);
-  flash_bwd_dq_fp32_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const int grid = (s_q + BM - 1) / BM * b * h;
+  flash_bwd_dq_fp32_kernel<D, BM><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1027,25 +1189,69 @@ int launch_dq_fp32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv_fp32(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dk, void* dv, int b, int h, int h_kv, int s_q,
-                    int s_kv, int causal, float sm_scale,
-                    cudaStream_t stream) {
-  constexpr size_t smem = Fp32Layout<D, true>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_fp32_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int D, int BN>
+int launch_dkv_fp32_keys(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse,
+                         const void* delta, void* dk, void* dv, int b, int h,
+                         int h_kv, int s_q, int s_kv, int causal,
+                         float sm_scale, cudaStream_t stream) {
+  constexpr size_t smem = DkvFp32<D, BN>::bytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dkv_fp32_kernel<D, BN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s_kv + BLOCK_N - 1) / BLOCK_N, h_kv, b);
-  flash_bwd_dkv_fp32_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const int grid = (s_kv + BN - 1) / BN * b * h_kv;
+  flash_bwd_dkv_fp32_kernel<D, BN><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), h, h_kv, s_q, s_kv,
       causal, sm_scale);
   return (int)cudaGetLastError();
+}
+
+// The largest slice (BM q rows: 64 at d 64, 32 at d 128; BN keys: 32) that
+// still gives two CTAs for each SM, halved down to 16 while it does not.
+template <int D>
+int launch_dq_fp32(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int b, int h, int h_kv, int s_q, int s_kv,
+                   int causal, float sm_scale, int device,
+                   cudaStream_t stream) {
+  const int sms = sm_count(device);
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const auto fills = [&](int rows) {
+    return (long long)b * h * ((s_q + rows - 1) / rows) >= 2LL * sms;
+  };
+  if constexpr (D == 64)
+    if (fills(64))
+      return launch_dq_fp32_rows<D, 64>(q, k, v, dout, lse, delta, dq, b, h,
+                                        h_kv, s_q, s_kv, causal, sm_scale,
+                                        stream);
+  if (fills(32))
+    return launch_dq_fp32_rows<D, 32>(q, k, v, dout, lse, delta, dq, b, h,
+                                      h_kv, s_q, s_kv, causal, sm_scale,
+                                      stream);
+  return launch_dq_fp32_rows<D, 16>(q, k, v, dout, lse, delta, dq, b, h, h_kv,
+                                    s_q, s_kv, causal, sm_scale, stream);
+}
+
+template <int D>
+int launch_dkv_fp32(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int b, int h, int h_kv, int s_q,
+                    int s_kv, int causal, float sm_scale, int device,
+                    cudaStream_t stream) {
+  const int sms = sm_count(device);
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  if ((long long)b * h_kv * ((s_kv + 31) / 32) >= 2LL * sms)
+    return launch_dkv_fp32_keys<D, 32>(q, k, v, dout, lse, delta, dk, dv, b,
+                                       h, h_kv, s_q, s_kv, causal, sm_scale,
+                                       stream);
+  return launch_dkv_fp32_keys<D, 16>(q, k, v, dout, lse, delta, dk, dv, b, h,
+                                     h_kv, s_q, s_kv, causal, sm_scale,
+                                     stream);
 }
 
 bool bad_shape(int b, int h, int h_kv, int s_q, int s_kv) {
@@ -1076,10 +1282,10 @@ int ray_tpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  s_q, s_kv, causal, sm_scale, device, st);
   if (dtype == 1 && d == 64)
     return launch_dq_fp32<64>(q, k, v, dout, lse, delta, dq, b, h, h_kv, s_q,
-                              s_kv, causal, sm_scale, st);
+                              s_kv, causal, sm_scale, device, st);
   if (dtype == 1 && d == 128)
     return launch_dq_fp32<128>(q, k, v, dout, lse, delta, dq, b, h, h_kv,
-                               s_q, s_kv, causal, sm_scale, st);
+                               s_q, s_kv, causal, sm_scale, device, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1103,10 +1309,11 @@ int ray_tpu_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   st);
   if (dtype == 1 && d == 64)
     return launch_dkv_fp32<64>(q, k, v, dout, lse, delta, dk, dv, b, h, h_kv,
-                               s_q, s_kv, causal, sm_scale, st);
+                               s_q, s_kv, causal, sm_scale, device, st);
   if (dtype == 1 && d == 128)
     return launch_dkv_fp32<128>(q, k, v, dout, lse, delta, dk, dv, b, h,
-                                h_kv, s_q, s_kv, causal, sm_scale, st);
+                                h_kv, s_q, s_kv, causal, sm_scale, device,
+                                st);
   return (int)cudaErrorInvalidValue;
 }
 

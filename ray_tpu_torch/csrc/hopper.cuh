@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels, in inline
-// PTX: TMA tensor maps and loads, mbarriers, wgmma descriptors and
-// products, named barriers, and register rebalancing between warpgroups.
+// PTX: TMA tensor maps and loads, mbarriers, cp.async copies, wgmma
+// descriptors and products, named barriers, and register rebalancing
+// between warpgroups.
 //
 // Layout convention.  Every operand tile is loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B from a box that is 64 bf16 (128 bytes) wide,
@@ -151,6 +152,36 @@ struct RingPos {
     }
   }
 };
+
+// -- device: cp.async (the fp32 kernels' copies) -----------------------------
+
+// 16 (or 4) bytes from global to shared memory, asynchronously; zero-filled
+// where !valid (src must still point into the tensor).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // -- device: TMA -------------------------------------------------------------
 

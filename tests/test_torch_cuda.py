@@ -68,7 +68,10 @@ FWD_EDGE_CASES = [
 ]
 # the backward kernels' edges: a dK/dV item is 128 keys (64 per consumer
 # warpgroup) walking q tiles of 128 rows (64 at d 128); a dQ item is 128
-# rows walking 128-key tiles; both grids hold at most one CTA per SM
+# rows walking 128-key tiles; both grids hold at most one CTA per SM.
+# fp32: a dQ CTA owns 64 q rows (32 at d 128) and a dK/dV CTA 32 keys,
+# each halved down to 16 where the grid would not give each SM two CTAs;
+# dQ walks 32-key tiles, dK/dV 64-row q tiles (32 at d 128)
 BWD_EDGE_CASES = [
     (1, 128, 128, 4, 2, 64, "bf16", True),       # fewer items than SMs
     (1, 17, 17, 4, 2, 64, "bf16", True),         # one ragged tile
@@ -79,6 +82,16 @@ BWD_EDGE_CASES = [
     (2, 1024, 1024, 16, 16, 64, "bf16", True),   # MHA
     (1, 2048, 2048, 24, 8, 128, "bf16", True),   # d 128
     (1, 384, 300, 4, 2, 128, "bf16", False),     # d 128, non-causal
+    (1, 17, 17, 4, 2, 64, "fp32", True),         # one ragged 16-row slice
+    (2, 60, 60, 1, 1, 128, "fp32", True),        # DT's 60 rows, 16 a CTA
+    (1, 129, 129, 4, 2, 64, "fp32", True),       # one row, one key past 128
+    (1, 300, 100, 4, 2, 128, "fp32", True),      # s_q > s_kv: dead rows
+    (1, 2048, 1000, 8, 2, 64, "fp32", True),     # ... in 64-row slices
+    (1, 256, 256, 8, 2, 64, "fp32", True),       # GQA group 4
+    (1, 384, 300, 4, 2, 128, "fp32", False),     # d 128, non-causal
+    (1, 200, 200, 1, 1, 64, "fp32", True),       # b * h = 1
+    (64, 128, 128, 12, 4, 64, "fp32", True),     # b * h >> 132: 64 rows,
+    (16, 256, 256, 16, 16, 128, "fp32", True),   # 32 keys a CTA
 ]
 
 
@@ -205,12 +218,14 @@ def test_flash_bwd_matches_plain_at_any_softmax_scale(cuda, sm_scale, d):
         assert tile_rel_err(got, ref) <= BWD_TILE_TOL["bf16"], name
 
 
-def test_flash_bwd_is_bitwise_deterministic(cuda):
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_flash_bwd_is_bitwise_deterministic(cuda, dtype):
     """No atomics: every dQ, dK and dV tile is written once by the CTA
-    that owns it, so two calls at the training shape give the same bits."""
-    q, k, v = _qkv(8, 4, 1024, 1024, 32, 8, 64, "bf16", cuda)
+    that owns it (fp32: the dK/dV warp groups' sums added in a fixed
+    order), so two calls at the training shape give the same bits."""
+    q, k, v = _qkv(8, 4, 1024, 1024, 32, 8, 64, dtype, cuda)
     do = torch.from_numpy(np.random.default_rng(9).standard_normal(
-        q.shape, dtype=np.float32)).to(device=cuda, dtype=torch.bfloat16)
+        q.shape, dtype=np.float32)).to(device=cuda, dtype=DTYPES[dtype])
     o, lse = flash_fwd(q, k, v, True, 0.125)
     first = flash_bwd(q, k, v, o, lse, do, True, 0.125)
     second = flash_bwd(q, k, v, o, lse, do, True, 0.125)
@@ -218,12 +233,13 @@ def test_flash_bwd_is_bitwise_deterministic(cuda):
         assert torch.equal(a, b), name
 
 
-def test_flash_bwd_tile_error_refuses_planted_faults(cuda):
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_flash_bwd_tile_error_refuses_planted_faults(cuda, dtype):
     """A dK/dV kernel that left out one query head of each group, and a
     kernel that dropped the last key tile, fail the tile bound."""
-    q, k, v = _qkv(4, 2, 1000, 1000, 32, 8, 64, "bf16", cuda)
+    q, k, v = _qkv(4, 2, 1000, 1000, 32, 8, 64, dtype, cuda)
     do = torch.from_numpy(np.random.default_rng(5).standard_normal(
-        q.shape, dtype=np.float32)).to(device=cuda, dtype=torch.bfloat16)
+        q.shape, dtype=np.float32)).to(device=cuda, dtype=DTYPES[dtype])
     o, lse = flash_fwd(q, k, v, True, 0.125)
     _, dk, dv = flash_bwd(q, k, v, o, lse, do, True, 0.125)
     do[:, :, ::4] = 0
@@ -235,7 +251,7 @@ def test_flash_bwd_tile_error_refuses_planted_faults(cuda):
         bad[:, 960:] = 0
         faults.append((good, bad))
     for good, bad in faults:
-        assert tile_rel_err(bad, good) > 10 * BWD_TILE_TOL["bf16"]
+        assert tile_rel_err(bad, good) > 10 * BWD_TILE_TOL[dtype]
 
 
 def test_flash_bwd_rejects_what_the_kernels_do_not_take(cuda):
@@ -729,6 +745,27 @@ def test_flash_fwd_refuses_planted_faults_within_one_tile(cuda, b):
     assert len(faults) == 3
     for what, bad in faults.items():
         assert tile_rel_err(bad, o) > 10 * FWD_TILE_TOL["fp32"], what
+
+
+@pytest.mark.parametrize("b", [64, 1])
+def test_flash_bwd_refuses_planted_faults_within_one_tile(cuda, b):
+    """At the Decision Transformer's shape (60 tokens, one head of 128,
+    fp32: one key tile), dQ, dK and dV with the last tile zeroed, dQ and dV
+    with the causal mask off and dK with the first key dropped each fail
+    the fp32 tile bound (chip_smoke.planted_faults)."""
+    from ray_tpu_torch import ops
+
+    q, k, v = _qkv(2, b, 60, 60, 1, 1, 128, "fp32", cuda)
+    do = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        q.shape, dtype=np.float32)).to(cuda)
+    scale = 128 ** -0.5
+    o, lse = flash_fwd(q, k, v, True, scale)
+    got = flash_bwd(q, k, v, o, lse, do, True, scale)
+    faults = _chip_smoke().planted_faults(ops, q, k, v, o, lse, do, True,
+                                          scale, got)
+    assert len(faults) == 6
+    for what, (i, bad) in faults.items():
+        assert tile_rel_err(bad, got[i]) > 10 * BWD_TILE_TOL["fp32"], what
 
 
 @pytest.mark.parametrize("check", ["maml_card_equals_cpu",
