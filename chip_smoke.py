@@ -2,27 +2,31 @@
 """Smoke run of the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-fwd A/flash_fwd.cu B/flash_fwd.cu ...
     python3 chip_smoke.py --compare-bwd A/flash_bwd.cu B/flash_bwd.cu ...
 
-The second form only builds the given flash_bwd.cu sources (another
-checkout's, with its own headers) and holds and times their fp32 backward
-kernels side by side (compare_bwd).  The first runs these phases, each
-fatal on failure:
+The second and third forms only build the given sources (another
+checkout's, with its own headers) and hold and time their fp32 forward
+(compare_fwd) or backward (compare_bwd) kernels side by side.  The first
+runs these phases, each fatal on failure:
   1. card    — name and power limit (nvidia-smi);
   2. build   — every CUDA source of the port with nvcc for sm_90a, all at
                once, timed, with nvcc's register / shared-memory report; a
                wgmma that ptxas serialises, or a spill in any instance of a
                Hopper kernel (the forward, dQ and dK/dV) or of the fp32
-               backward's register-blocked kernels (dQ, dK/dV), fails it;
+               route's register-blocked kernels (forward, dQ, dK/dV), fails
+               it;
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main paths' shapes and the edge cases, with the stated
                tolerances (elementwise and per 64-row tile), and planted
                faults in the kernels' results that the check must refuse;
-               the backward bitwise the same over two calls (the bf16
-               train shape and every fp32 case); kernel, plain
+               the forward bitwise the same over two calls in every fp32
+               case, the backward at the bf16 train shape and in every
+               fp32 case; kernel, plain
                and library times from CUDA events beside the bound the card
                could reach, at the main shape (the forward at both main
-               paths' shapes, with its host time per call; the backward
+               paths' shapes and the long fp32 one, with its host time per
+               call; the backward
                also as a whole, delta and both kernels, beside SDPA's),
                and device times from torch.profiler (from CUDA events,
                said so, where three profiler sessions record no device
@@ -157,8 +161,8 @@ fatal on failure:
 The kernel phases also hold and time each kernel at the MoE train shape,
 the ViT shapes and the DT shapes (fp32, 60 tokens, one head of 128; the
 planted faults there include the causal mask left off and the first key
-dropped, since no key tile lies inside one tile), and the backward also at
-the long fp32 shape (b 1, s 1024, 32/8 heads, d 64).  Each phase prints its
+dropped, since no key tile lies inside one tile), and both also at the
+long fp32 shape (b 1, s 1024, 32/8 heads, d 64).  Each phase prints its
 seconds.  Then one JSON line of the engine's numbers, one of the moe and
 vit phases' (with the phase seconds), one of the rl phase's, one of the
 offpolicy phase's, one of the rl_breadth phase's, one of the rl_rest
@@ -245,7 +249,7 @@ BWD_CASES = [
 # the shapes each kernel is timed at: {label: case name}
 TIMED_FWD = {"serve": "main", "train": "train", "moe_train": "moe-train",
              "vit": "vit", "vit_predict": "vit-predict", "dt": "dt",
-             "dt_eval": "dt-eval"}
+             "dt_eval": "dt-eval", "fp32": "fp32"}
 TIMED_BWD = {"train": "main", "moe_train": "moe-train", "vit": "vit",
              "dt": "dt", "fp32": "fp32"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
@@ -592,23 +596,28 @@ def phase_kernels(card, ops):
             if not (torch.all(o[:, :dead] == 0)
                     and torch.all(lse[:, :, :dead] == 0)):
                 raise AssertionError("dead rows are not O = 0, LSE = 0")
-        if dtype == torch.bfloat16 or name.startswith("dt"):
-            faults = ops.planted_fwd_faults(ops.flash_fwd, q, k, v, o,
-                                            causal, scale)
-            if len(faults) < 3:     # a sequence within one tile
-                faults.update(short_fwd_faults(ops, q, k, v, o, causal,
-                                               scale))
-            refused = []
-            for what, bad in faults.items():
-                if fwd_matches(bad, lse, o_ref, lse_ref, dtype)[0]:
-                    raise AssertionError(f"the check let a planted fault "
-                                         f"pass in case {name}: {what}")
-                refused.append(f"{what} {ops.tile_rel_err(bad, o_ref):.3g}")
-            if len(refused) != 3:
-                raise AssertionError(f"case {name} planted {len(refused)} "
-                                     f"of the 3 faults")
-            log(f"             planted faults refused (tile error): "
-                + "; ".join(refused))
+        if dtype == torch.float32:   # no atomics: each output written once
+            again = ops.flash_fwd(q, k, v, causal, scale)
+            if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+                raise AssertionError(f"flash_fwd is not deterministic in "
+                                     f"case {name}")
+            log("             O, LSE bitwise the same over two calls")
+            del again
+        faults = ops.planted_fwd_faults(ops.flash_fwd, q, k, v, o, causal,
+                                        scale)
+        if len(faults) < 3:     # a sequence within one tile
+            faults.update(short_fwd_faults(ops, q, k, v, o, causal, scale))
+        refused = []
+        for what, bad in faults.items():
+            if fwd_matches(bad, lse, o_ref, lse_ref, dtype)[0]:
+                raise AssertionError(f"the check let a planted fault pass "
+                                     f"in case {name}: {what}")
+            refused.append(f"{what} {ops.tile_rel_err(bad, o_ref):.3g}")
+        if len(refused) != 3:
+            raise AssertionError(f"case {name} planted {len(refused)} of the "
+                                 f"3 faults")
+        log(f"             planted faults refused (tile error): "
+            + "; ".join(refused))
         if name == "main":
             main_err = err_o
         del q, k, v, o, lse, o_ref, lse_ref
@@ -3655,11 +3664,11 @@ def host_ops(fn):
 
 
 def hopper_instance(function):
-    """'flash_bwd_dkv_hopper_kernel<64, 128>' or
-    'flash_bwd_dq_fp32_kernel<128, 16>' from a mangled name; None for any
-    other kernel (the fp32 forward's first design among them)."""
-    found = re.search(r"(flash_[a-z_]+_hopper_kernel|flash_bwd_d[a-z]+_fp32"
-                      r"_kernel)I(.*?)EEv", function)
+    """'flash_bwd_dkv_hopper_kernel<64, 128>',
+    'flash_bwd_dq_fp32_kernel<128, 16>' or 'flash_fwd_fp32_kernel<64, 64,
+    true>' from a mangled name; None for any other kernel."""
+    found = re.search(r"(flash_[a-z_]+_hopper_kernel|flash_(?:fwd|bwd_d[a-z]+)"
+                      r"_fp32_kernel)I(.*?)EEv", function)
     if not found:
         return None
     args = [("true" if value == "1" else "false") if kind == "b" else value
@@ -3670,8 +3679,8 @@ def hopper_instance(function):
 def check_ptxas(nvcc_log):
     """Fail on what ptxas says would cost a Hopper kernel its overlap: a
     wgmma serialised, or a spill in any instance of a *_hopper_kernel
-    (forward, dQ, dK/dV) or of the fp32 backward's register-blocked
-    kernels (dQ, dK/dV); print each instance's registers."""
+    (forward, dQ, dK/dV) or of the fp32 route's register-blocked kernels
+    (forward, dQ, dK/dV); print each instance's registers."""
     if "wgmma.mma_async instructions are serialized" in nvcc_log:
         raise AssertionError("ptxas serialised wgmma instructions")
     name = None
@@ -3694,25 +3703,31 @@ def phase_build(build):
         check_ptxas(built.log)
 
 
-# --compare-bwd: the fp32 backward of each given flash_bwd.cu, held against
-# the plain versions at these cases, then timed at these BWD_CASES shapes
+# --compare-fwd / --compare-bwd: the fp32 kernels of each given source,
+# held against the plain versions at these cases, then timed at these
+# shapes of CASES (forward) and BWD_CASES (backward)
 COMPARE_CASES = [("s17", 1, 17, 17, 4, 2, 64, True),
                  ("dt", 64, 60, 60, 1, 1, 128, True),
+                 ("dt-eval", 1, 60, 60, 1, 1, 128, True),
                  ("s_q>s_kv", 1, 300, 100, 4, 2, 128, True),
                  ("non-causal", 1, 384, 300, 4, 2, 128, False),
                  ("fp32", 1, 1024, 1024, 32, 8, 64, True),
                  ("b*h 768", 64, 128, 128, 12, 4, 64, True),
                  ("s_q<s_kv", 1, 256, 1000, 8, 2, 64, True)]
-COMPARE_TIMED = ("dt", "fp32")
+COMPARE_FWD_TIMED = ("dt", "dt-eval", "fp32")
+COMPARE_BWD_TIMED = ("dt", "fp32")
 
 
-def compare_bwd(card, ops, build, sources):
-    """A/B of the fp32 backward kernels of several sources (another
-    checkout's csrc/flash_bwd.cu, built with its own headers, or this
-    tree's): nvcc all at once, each fp32 instance's registers and spills,
-    each source's dQ, dK and dV against the plain versions at
-    COMPARE_CASES, then each kernel's device time at COMPARE_TIMED in turns
-    (first source to last, then back), beside its bound."""
+def compare_sources(card, build, sources, entries, check, timings):
+    """A/B of the fp32 kernels of several sources (another checkout's
+    csrc/<name>.cu, built with its own headers, or this tree's): nvcc all
+    at once, each fp32 instance's registers and spills; ``check(i, lib,
+    case)`` for each source at each of COMPARE_CASES, which raises where
+    a source disagrees with the plain version; then, for each (label,
+    kernel name, bound, library ms or None, ``fn_of(lib)``) of
+    ``timings()``, each source's device time in turns (first source to
+    last, then back) beside the bound.  ``entries`` maps each C entry
+    point to its count of pointer arguments."""
     import ctypes
 
     out = build.BUILD_DIR / "compare"
@@ -3737,76 +3752,141 @@ def compare_bwd(card, ops, build, sources):
                 log(f"  [{i}] {name}: {line.split(':', 1)[1].strip()}; "
                     f"{spills}")
         lib = ctypes.CDLL(str(out / f"lib{i}.so"))
-        for kernel, n_ptr in (("flash_bwd_dq", 7), ("flash_bwd_dkv", 8)):
-            fn = getattr(lib, f"ray_tpu_{kernel}")
+        for entry, n_ptr in entries.items():
+            fn = getattr(lib, entry)
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
         libs.append(lib)
         log(f"  [{i}] {src}")
+    for case in COMPARE_CASES:
+        for i, lib in enumerate(libs):
+            check(i, lib, case)
+        log(f"  {case[0]}: every source agrees with the plain version")
+    for label, kname, bound, library_ms, fn_of in timings():
+        times = {}
+        order = list(range(len(libs)))
+        for i in order + order[::-1]:
+            fn = fn_of(libs[i])
+            times.setdefault(i, []).append(device_ms(
+                fn, kernel_name(kname, torch.float32), calls=20))
+        lib_text = ("" if library_ms is None else
+                    f"; scaled_dot_product_attention {library_ms:.4f}")
+        log(f"  {label} {kname} (bound {bound:.4f} ms{lib_text}) device ms: "
+            + "; ".join(f"[{i}] {min(t):.4f}-{max(t):.4f} "
+                        f"({100 * bound / min(t):.1f}%)"
+                        for i, t in times.items()) + f" [{card}]")
+    return 0
 
-    def call(lib, kernel, outs, q, k, v, do, lse, delta, causal, scale):
-        b, s_q, h, d = q.shape
-        err = getattr(lib, f"ray_tpu_{kernel}")(
-            *[t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)], 1, b,
-            h, k.shape[2], s_q, k.shape[1], d, int(causal), scale,
-            q.device.index, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{kernel}: {err}")
-        return outs
+
+def fp32_call(lib, entry, ins, outs, q, k, causal, scale):
+    """``entry`` of a compared library on fp32 tensors → ``outs``."""
+    b, s_q, h, d = q.shape
+    err = getattr(lib, entry)(
+        *[t.data_ptr() for t in (*ins, *outs)], 1, b, h, k.shape[2], s_q,
+        k.shape[1], d, int(causal), scale, q.device.index,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry}: {err}")
+    return outs
+
+
+def compare_fwd(card, ops, build, sources):
+    """A/B of the fp32 forward kernel of several flash_fwd.cu sources:
+    O and LSE against flash_attention_plain at COMPARE_CASES, then device
+    time at COMPARE_FWD_TIMED beside the bound and SDPA's forward."""
+    fp32 = torch.float32
+
+    def forward(lib, q, k, v, causal, scale):
+        lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=fp32,
+                          device=q.device)
+        return fp32_call(lib, "ray_tpu_flash_fwd", (q, k, v),
+                         (torch.empty_like(q), lse), q, k, causal, scale)
+
+    def check(i, lib, case):
+        name, b, s_q, s_kv, h, h_kv, d, causal = case
+        q, k, v = qkv(0, b, s_q, s_kv, h, h_kv, d, fp32)
+        scale = d ** -0.5
+        o, lse = forward(lib, q, k, v, causal, scale)
+        on_card(f"source {i}, case {name}")
+        o_ref, lse_ref = ops.flash_attention_plain(q, k, v, causal, scale)
+        if not fwd_matches(o, lse, o_ref, lse_ref, fp32)[0]:
+            raise AssertionError(f"source {i} disagrees with the plain "
+                                 f"version in case {name}")
+
+    def timings():
+        for shape in COMPARE_FWD_TIMED:
+            _, b, s_q, s_kv, h, h_kv, d, dtype, causal = named(CASES, shape)
+            q, k, v = qkv(1, b, s_q, s_kv, h, h_kv, d, fp32)
+            scale = d ** -0.5
+            bound, _ = attention_bound(b, s_q, s_kv, h, h_kv, d, dtype,
+                                       causal)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            library_ms = device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale,
+                    enable_gqa=True), calls=20)
+            yield (shape, "flash_fwd", bound, library_ms,
+                   lambda lib: lambda: forward(lib, q, k, v, causal, scale))
+
+    return compare_sources(card, build, sources, {"ray_tpu_flash_fwd": 5},
+                           check, timings)
+
+
+def compare_bwd(card, ops, build, sources):
+    """A/B of the fp32 backward kernels of several flash_bwd.cu sources:
+    dQ, dK and dV against the plain versions at COMPARE_CASES, then each
+    kernel's device time at COMPARE_BWD_TIMED beside its bound."""
+    fp32 = torch.float32
 
     def kernels(lib):
-        return (lambda q, k, v, *rest: call(lib, "flash_bwd_dq",
-                                            (torch.empty_like(q),), q, k, v,
-                                            *rest),
-                lambda q, k, v, *rest: call(lib, "flash_bwd_dkv",
-                                            (torch.empty_like(k),
-                                             torch.empty_like(v)), q, k, v,
-                                            *rest))
+        return (lambda q, k, v, *rest: fp32_call(
+                    lib, "ray_tpu_flash_bwd_dq", (q, k, v, *rest[:3]),
+                    (torch.empty_like(q),), q, k, *rest[3:]),
+                lambda q, k, v, *rest: fp32_call(
+                    lib, "ray_tpu_flash_bwd_dkv", (q, k, v, *rest[:3]),
+                    (torch.empty_like(k), torch.empty_like(v)), q, k,
+                    *rest[3:]))
 
-    fp32 = torch.float32
-    for name, b, s_q, s_kv, h, h_kv, d, causal in COMPARE_CASES:
-        q, k, v = qkv(2, b, s_q, s_kv, h, h_kv, d, fp32)
-        do = randn(3, (b, s_q, h, d), fp32)
+    def inputs(q_seed, do_seed, b, s_q, s_kv, h, h_kv, d, causal):
+        q, k, v = qkv(q_seed, b, s_q, s_kv, h, h_kv, d, fp32)
+        do = randn(do_seed, (b, s_q, h, d), fp32)
         scale = d ** -0.5
         o, lse = ops.flash_fwd(q, k, v, causal, scale)
-        args = (q, k, v, do, lse, delta_of(o, do), causal, scale)
+        return (q, k, v, do, lse, delta_of(o, do), causal, scale), o
+
+    def check(i, lib, case):
+        name, b, s_q, s_kv, h, h_kv, d, causal = case
+        args, o = inputs(2, 3, b, s_q, s_kv, h, h_kv, d, causal)
+        q, k, v, do, lse, _, _, scale = args
         want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                              scale)
-        for i, lib in enumerate(libs):
-            dq, dkv = kernels(lib)
-            got = (*dq(*args), *dkv(*args))
-            on_card(f"source {i}, case {name}")
-            tiles = [bwd_matches(g, w, fp32) for g, w in zip(got, want)]
-            if not all(ok for ok, _ in tiles):
-                raise AssertionError(f"source {i} disagrees with the plain "
-                                     f"version in case {name}")
-        log(f"  {name}: every source agrees with the plain version")
-    for shape in COMPARE_TIMED:
-        _, b, s_q, s_kv, h, h_kv, d, dtype, causal = named(BWD_CASES, shape)
-        q, k, v = qkv(5, b, s_q, s_kv, h, h_kv, d, fp32)
-        do = randn(6, (b, s_q, h, d), fp32)
-        scale = d ** -0.5
-        o, lse = ops.flash_fwd(q, k, v, causal, scale)
-        args = (q, k, v, do, lse, delta_of(o, do), causal, scale)
-        for which, kname, counts in (
-                (0, "flash_bwd_dq", dict(products=3, q_like=3, kv_like=2,
-                                         stats=2)),
-                (1, "flash_bwd_dkv", dict(products=4, q_like=2, kv_like=4,
-                                          stats=2))):
-            bound, _ = attention_bound(b, s_q, s_kv, h, h_kv, d, dtype,
-                                       causal, **counts)
-            times = {}
-            order = list(range(len(libs)))
-            for i in order + order[::-1]:
-                fn = kernels(libs[i])[which]
-                times.setdefault(i, []).append(device_ms(
-                    lambda: fn(*args), kernel_name(kname, dtype), calls=20))
-            log(f"  {shape} {kname} (bound {bound:.4f} ms) device ms: "
-                + "; ".join(f"[{i}] {min(t):.4f}-{max(t):.4f} "
-                            f"({100 * bound / min(t):.1f}%)"
-                            for i, t in times.items()) + f" [{card}]")
-    return 0
+        dq, dkv = kernels(lib)
+        got = (*dq(*args), *dkv(*args))
+        on_card(f"source {i}, case {name}")
+        if not all(bwd_matches(g, w, fp32)[0] for g, w in zip(got, want)):
+            raise AssertionError(f"source {i} disagrees with the plain "
+                                 f"version in case {name}")
+
+    def timings():
+        for shape in COMPARE_BWD_TIMED:
+            _, b, s_q, s_kv, h, h_kv, d, dtype, causal = named(BWD_CASES,
+                                                               shape)
+            args, _ = inputs(5, 6, b, s_q, s_kv, h, h_kv, d, causal)
+            for which, kname, counts in (
+                    (0, "flash_bwd_dq", dict(products=3, q_like=3, kv_like=2,
+                                             stats=2)),
+                    (1, "flash_bwd_dkv", dict(products=4, q_like=2,
+                                              kv_like=4, stats=2))):
+                bound, _ = attention_bound(b, s_q, s_kv, h, h_kv, d, dtype,
+                                           causal, **counts)
+                yield (shape, kname, bound, None,
+                       lambda lib, which=which: functools.partial(
+                           kernels(lib)[which], *args))
+
+    return compare_sources(card, build, sources, {"ray_tpu_flash_bwd_dq": 7,
+                                                  "ray_tpu_flash_bwd_dkv": 8},
+                           check, timings)
 
 
 def main():
@@ -3823,6 +3903,8 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"== card: {card}")
     log(f"   torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if sys.argv[1:2] == ["--compare-fwd"]:
+        return compare_fwd(card, ops, build, sys.argv[2:])
     if sys.argv[1:2] == ["--compare-bwd"]:
         return compare_bwd(card, ops, build, sys.argv[2:])
 

@@ -50,10 +50,32 @@
 // as the products, and the two barely overlap within an SM; each item's
 // first tile and its last P V and epilogue overlap nothing.
 //
-// fp32 inputs take scalar fp32 FMAs: wgmma has no exact fp32 form (TF32
-// would break fp32's 1e-4 tolerance).  That route is the first design: one
-// CTA per (batch, head, 64-row q tile), four warps of 16 rows, K and V tiles
-// of 64 keys loaded synchronously, scores and P V through shared memory.
+// fp32 inputs take their own kernel (flash_fwd_fp32_kernel), the same
+// function in exact fp32 FMAs on the CUDA cores: wgmma has no exact fp32
+// form, and TF32 (or 3xTF32) would break fp32's 1e-4 tolerance.  Bounds (67
+// TFLOP/s fp32, 3.35 TB/s): at the Decision Transformer's shape (b 64, s 60,
+// one head of 128, causal) 0.0024 ms of bytes (its FMAs at peak take 0.0009
+// ms), at b 1 0.00004 ms (launch latency sets it in practice); at b 1, s
+// 1024, 32/8 heads, d 64, causal (524,800 visible pairs a head, 4.30 GFLOP)
+// 0.0641 ms of operations.  The design (flash_common.cuh, the
+// register-blocked section):
+//  - The grid fills the card without sums across CTAs: a CTA owns 64 q
+//    rows at d 64 (32 at d 128), halved down to 16 while the grid would not
+//    give each SM two CTAs (DT: 256 CTAs of 16 rows, DT at b 1: 4); CTAs are
+//    numbered with the heads fastest and the longest causal walks first.
+//  - S = Q K^T and O += P V are register-blocked (up to 4 x 8 scores and 8
+//    float4 of O a thread), reading 16-byte operands from padded rows; the
+//    score grid is the one with the fewest operand reads, 8 threads wide on
+//    a tie so that a row's max and sum are shuffles within a warp (where a
+//    row spans warps, their halves meet in shared memory).  P and each
+//    row's rescale factor reach P V's grid through shared memory.
+//  - K and V walk in tiles of 64 keys at d 64 (32 at d 128) through two
+//    cp.async stages, the next tile in flight while this one is used.
+//  - The exponent is one FFMA and one EX2, the scale folded in for a scale
+//    >= 0 (scaled first for a negative one), the running max in log2 units.
+// 46% of the bound at the long shape, 24% at DT (PERF.md): what is left is
+// issue and shared-memory operand traffic, two barriers a key tile, and
+// the causal walks' tail.
 
 #include "flash_hopper.cuh"
 
@@ -411,139 +433,289 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// -- fp32: scalar FMAs -------------------------------------------------------
+// -- fp32: register-blocked scalar FMAs -------------------------------------
 
-// Shared-memory layout.  Rows carry 16 bytes of padding against bank
-// conflicts.
-template <int D>
-struct Fp32Layout {
-  static constexpr int LDT = D + 4;                            // Q, K, V rows
-  static constexpr int LDP = BLOCK_N + 4;                      // P rows
-  static constexpr int LDF = (D > BLOCK_N ? D : BLOCK_N) + 4;  // product rows
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + 4 * BLOCK_M * LDT;
-  static constexpr size_t v_off = k_off + 4 * BLOCK_N * LDT;
-  static constexpr size_t p_off = v_off + 4 * BLOCK_N * LDT;
-  static constexpr size_t f_off = p_off + 4 * BLOCK_M * LDP;
-  static constexpr size_t bytes = f_off + 4 * BLOCK_M * LDF;
+// A CTA owns BM q rows of one (batch, head) and walks the keys in tiles of
+// BN (64 at d 64, 32 at d 128); K and V tiles stream through two cp.async
+// stages.  S = Q K^T runs on ScoreGrid's grid, where the 8 lanes of a warp
+// that share a score row take its max and sum by shuffles; where a row
+// spans two warps (W = 2), the warps' halves meet in shared memory behind
+// one more barrier.  O += P V runs on NnGrid's grid, whose rows are other
+// threads', so P and each row's rescale factor go through shared memory,
+// under the one barrier P needs anyway.  Shared memory: Q (BM rows),
+// 2 x (K, V) (BN rows), P (BM x BN, rows padded by 8 floats), alpha, l and
+// the warps' halves (BM, BM and BM x W floats).
+
+// NtGrid's grid (the fewest operand reads), or on a tie the one 8 threads
+// wide, whose rows each lie in one warp.
+template <int R, int C>
+struct ScoreGrid {
+  using Nt = NtGrid<R, C>;
+  static constexpr bool ROW_IN_WARP =
+      R % 16 == 0 && R / 16 + C / 8 <= Nt::TM + Nt::TN;
+  static constexpr int TY = ROW_IN_WARP ? 16 : Nt::TY, TX = F32_THREADS / TY;
+  static constexpr int TM = R / TY, TN = C / TX, W = TX / 8;
 };
 
-// Grid: (ceil(s_q / BLOCK_M), h, b).  Lane l of a warp owns row l / 2 of
-// the warp's 16 and half l % 2 of that row's keys (in the softmax) and of
-// its D output columns (in the accumulator).
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int BM>
+struct FwdFp32 {
+  static constexpr int BN = D == 64 ? 64 : 32;
+  static constexpr int LDT = D + 4, LDP = BN + 8;
+  using S = ScoreGrid<BM, BN>;  // S, P: rows x keys
+  using G = NnGrid<BM, D>;      // O: rows x D
+  static constexpr size_t q_off = 0;
+  static constexpr size_t k_off = q_off + sizeof(float) * BM * LDT;
+  static constexpr size_t v_off = k_off + sizeof(float) * 2 * BN * LDT;
+  static constexpr size_t p_off = v_off + sizeof(float) * 2 * BN * LDT;
+  static constexpr size_t a_off = p_off + sizeof(float) * BM * LDP;
+  static constexpr size_t l_off = a_off + sizeof(float) * BM;
+  static constexpr size_t x_off = l_off + sizeof(float) * BM;
+  static constexpr size_t bytes = x_off + sizeof(float) * BM * S::W;
+};
+
+// Two CTAs an SM (8 warps): every configuration fits twice into the SM's
+// 228 KB.
+static_assert(2 * (FwdFp32<64, 64>::bytes + 1024) <= 233472 &&
+                  2 * (FwdFp32<64, 16>::bytes + 1024) <= 233472 &&
+                  2 * (FwdFp32<128, 32>::bytes + 1024) <= 233472,
+              "an fp32 forward configuration no longer fits twice an SM");
+
+// over the 8 lanes of a warp that share a score row
+__device__ __forceinline__ float row_max8(float x) {
+  x = quad_max(x);
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+
+__device__ __forceinline__ float row_sum8(float x) {
+  x = quad_sum(x);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// Grid: one CTA per (batch, head, BM-row q tile), numbered with the heads
+// and batches fastest and, under causality, the last q tiles (the longest
+// walks) first.  O is [b, s_q, h, D]; LSE is [b, h, s_q].  FOLD (sm_scale
+// >= 0): the running max is taken over the raw scores and the scale folded
+// into the exponent's FFMA; a negative scale reverses the scores' order, so
+// each score is scaled first.  m is in log2 units of scaled scores.
+template <int D, int BM, bool FOLD>
+__global__ void __launch_bounds__(F32_THREADS, 2)
 flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ lse, int h, int h_kv, int s_q,
                       int s_kv, int causal, float sm_scale) {
-  using L = Fp32Layout<D>;
+  using L = FwdFp32<D, BM>;
+  using S = typename L::S;
+  using G = typename L::G;
+  constexpr int BN = L::BN, W = S::W;
   extern __shared__ __align__(128) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem + L::q_off);
   float* k_s = reinterpret_cast<float*>(smem + L::k_off);
   float* v_s = reinterpret_cast<float*>(smem + L::v_off);
   float* p_s = reinterpret_cast<float*>(smem + L::p_off);
-  float* f_s = reinterpret_cast<float*>(smem + L::f_off);
+  float* a_s = reinterpret_cast<float*>(smem + L::a_off);
+  float* l_s = reinterpret_cast<float*>(smem + L::l_off);
+  float* x_s = reinterpret_cast<float*>(smem + L::x_off);
 
-  const int q0 = blockIdx.x * BLOCK_M, hh = blockIdx.y, bb = blockIdx.z;
+  const int n_qt = (s_q + BM - 1) / BM, bh_all = gridDim.x / n_qt;
+  const int rank = blockIdx.x / bh_all, bh = blockIdx.x % bh_all;
+  const int q0 = (causal ? n_qt - 1 - rank : rank) * BM;
+  const int hh = bh % h, bb = bh / h;
   const int kvh = hh / (h / h_kv);
   const int q_offset = s_kv - s_q;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = lane >> 1, half = lane & 1;
-  const int q_idx = q0 + warp * 16 + r;
   const long long q_stride = (long long)h * D, kv_stride = (long long)h_kv * D;
   const float* q_b = q + (long long)bb * s_q * q_stride + (long long)hh * D;
   const float* k_b = k + (long long)bb * s_kv * kv_stride + (long long)kvh * D;
   const float* v_b = v + (long long)bb * s_kv * kv_stride + (long long)kvh * D;
 
-  load_tile<float, D, BLOCK_M>(q_s, L::LDT, q_b, q_stride, q0, s_q);
-
-  int n_tiles = (s_kv + BLOCK_N - 1) / BLOCK_N;
-  if (causal) {  // skip k-tiles wholly above the diagonal of this q tile
-    const int last_key = min(q0 + BLOCK_M, s_q) - 1 + q_offset;
-    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / BLOCK_N + 1);
+  int n_tiles = (s_kv + BN - 1) / BN;
+  if (causal) {  // skip key tiles wholly above the diagonal of these rows
+    const int last_key = min(q0 + BM, s_q) - 1 + q_offset;
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / BN + 1);
   }
+  load_tile_async<D, BM>(q_s, q_b, q_stride, q0, s_q);
+  if (n_tiles > 0) {
+    load_tile_async<D, BN>(k_s, k_b, kv_stride, 0, s_kv);
+    load_tile_async<D, BN>(v_s, v_b, kv_stride, 0, s_kv);
+  }
+  cp_async_commit();
 
-  const float* q_w = q_s + warp * 16 * L::LDT;
-  float* p_w = p_s + warp * 16 * L::LDP;
-  float* f_w = f_s + warp * 16 * L::LDF;
-  float m = NEG_INF, l = 0.0f;
-  float acc[D / 2];
+  const int2 sp = grid_pos<S::TX>(threadIdx.x);
+  const int2 gp = grid_pos<G::TX>(threadIdx.x);
+  const float scale_log2 = sm_scale * LOG2E;
+  // per row of S: the running max, and this thread's share of the sum
+  float m[S::TM], l[S::TM];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
+  for (int i = 0; i < S::TM; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.0f;
+  }
+  float4 acc[G::TM][G::TV];
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < G::TV; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous K, V tile
-    load_tile<float, D, BLOCK_N>(k_s, L::LDT, k_b, kv_stride, k0, s_kv);
-    load_tile<float, D, BLOCK_N>(v_s, L::LDT, v_b, kv_stride, k0, s_kv);
+    // tile t has landed, and every thread is done with tile t - 1's stage,
+    // P, alpha and the warps' halves
+    cp_async_wait<0>();
     __syncthreads();
-
-    warp_nt<D>(q_w, L::LDT, k_s, L::LDT, f_w, L::LDF, lane);
-    __syncwarp();
-
-    // online softmax over this lane's 32 keys of row r
-    float* srow = f_w + r * L::LDF + half * (BLOCK_N / 2);
-    const int row_pos = q_idx + q_offset;
-    float mx = NEG_INF;
-    for (int j = 0; j < BLOCK_N / 2; ++j) {
-      const int col = k0 + half * (BLOCK_N / 2) + j;
-      const bool visible = col < s_kv && (!causal || row_pos >= col);
-      const float sv = visible ? srow[j] * sm_scale : NEG_INF;
-      srow[j] = sv;
-      mx = fmaxf(mx, sv);
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      const int nx = (st ^ 1) * BN * L::LDT;
+      load_tile_async<D, BN>(k_s + nx, k_b, kv_stride, (t + 1) * BN,
+                                 s_kv);
+      load_tile_async<D, BN>(v_s + nx, v_b, kv_stride, (t + 1) * BN,
+                                 s_kv);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    // a row with nothing visible yet keeps P = 0 instead of exp(0) = 1
-    const bool dead = m_new <= NEG_INF * 0.5f;
-    float* prow = p_w + r * L::LDP + half * (BLOCK_N / 2);
-    float rowsum = 0.0f;
-    for (int j = 0; j < BLOCK_N / 2; ++j) {
-      const float p = dead ? 0.0f : expf(srow[j] - m_new);
-      rowsum += p;
-      prow[j] = p;
-    }
-    rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-    l = alpha * l + rowsum;
-    m = m_new;
-    __syncwarp();  // P complete; the scores' scratch is free for P V
+    cp_async_commit();
+    const float* k_t = k_s + st * BN * L::LDT;
+    const float* v_t = v_s + st * BN * L::LDT;
 
-    warp_nn<D>(p_w, L::LDP, v_s, L::LDT, f_w, L::LDF, lane);
-    __syncwarp();
-    const float* pv = f_w + r * L::LDF + half * (D / 2);
+    float s[S::TM][S::TN];
+    nt_prod<D, S::TM, S::TN, S::TY, S::TX>(s, q_s, k_t, sp.y, sp.x);
+    const int k0 = t * BN;
+    float mxs[S::TM];  // each row's max over this warp's columns
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] = acc[j] * alpha + pv[j];
+    for (int i = 0; i < S::TM; ++i) {
+      const int r = sp.y + i * S::TY, row_pos = q0 + r + q_offset;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j) {
+        const int col = k0 + sp.x + j * S::TX;
+        const bool visible = col < s_kv && (!causal || row_pos >= col);
+        s[i][j] = visible ? (FOLD ? s[i][j] : s[i][j] * scale_log2) : NEG_INF;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mxs[i] = row_max8(mx);
+      if (W > 1 && (sp.x & 7) == 0) x_s[r * W + sp.x / 8] = mxs[i];
+    }
+    if (W > 1) __syncthreads();
+#pragma unroll
+    for (int i = 0; i < S::TM; ++i) {
+      const int r = sp.y + i * S::TY;
+      float mx = mxs[i];
+      if (W > 1) {
+        mx = x_s[r * W];
+#pragma unroll
+        for (int w = 1; w < W; ++w) mx = fmaxf(mx, x_s[r * W + w]);
+      }
+      if (FOLD) mx = mx <= NEG_INF * 0.5f ? NEG_INF : mx * scale_log2;
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = ex2(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j) {
+        // a hidden key, and every key of a row that sees none yet, gets 0
+        const float p =
+            s[i][j] == NEG_INF
+                ? 0.0f
+                : ex2(FOLD ? fmaf(s[i][j], scale_log2, -m_new) : s[i][j] - m_new);
+        p_s[r * L::LDP + sp.x + j * S::TX] = p;
+        sum += p;
+      }
+      l[i] = alpha * l[i] + sum;
+      if (sp.x == 0) a_s[r] = alpha;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i) {
+      const float alpha = a_s[gp.y + i * G::TY];
+#pragma unroll
+      for (int j = 0; j < G::TV; ++j) {
+        acc[i][j].x *= alpha;
+        acc[i][j].y *= alpha;
+        acc[i][j].z *= alpha;
+        acc[i][j].w *= alpha;
+      }
+    }
+    nn_acc<BN, L::LDP, D, G::TM, G::TV, G::TY, G::TX>(acc, p_s, v_t, gp.y,
+                                                          gp.x);
   }
 
-  if (q_idx < s_q) {
-    const float safe_l = l == 0.0f ? 1.0f : l;
-    float* orow = o + ((long long)bb * s_q + q_idx) * q_stride +
-                  (long long)hh * D + half * (D / 2);
+  // each row's sum to shared memory (the warps' halves added in order), LSE
+  // from its first thread; then O = acc / l (a row that saw no key: l = 0,
+  // O = 0, LSE = 0)
+  cp_async_wait<0>();
+  float ls[S::TM];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) orow[j] = acc[j] / safe_l;
-    if (half == 0)
-      lse[((long long)bb * h + hh) * s_q + q_idx] =
-          m <= NEG_INF * 0.5f ? 0.0f : m + logf(fmaxf(l, 1e-30f));
+  for (int i = 0; i < S::TM; ++i) {
+    ls[i] = row_sum8(l[i]);
+    if (W > 1 && (sp.x & 7) == 0) x_s[(sp.y + i * S::TY) * W + sp.x / 8] = ls[i];
+  }
+  if (W > 1) __syncthreads();
+#pragma unroll
+  for (int i = 0; i < S::TM; ++i) {
+    const int r = sp.y + i * S::TY, row = q0 + r;
+    float lr = ls[i];
+    if (W > 1) {
+      lr = x_s[r * W];
+#pragma unroll
+      for (int w = 1; w < W; ++w) lr += x_s[r * W + w];
+    }
+    if (sp.x == 0) {
+      l_s[r] = lr;
+      if (row < s_q)
+        lse[((long long)bb * h + hh) * s_q + row] =
+            m[i] <= NEG_INF * 0.5f ? 0.0f
+                                   : (m[i] + log2f(fmaxf(lr, 1e-30f))) * LN2;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i) {
+    const int r = gp.y + i * G::TY, row = q0 + r;
+    if (row >= s_q) continue;
+    const float lr = l_s[r] == 0.0f ? 1.0f : l_s[r];
+    float* out = o + (long long)bb * s_q * q_stride + (long long)hh * D +
+                 (long long)row * q_stride;
+#pragma unroll
+    for (int j = 0; j < G::TV; ++j)
+      *reinterpret_cast<float4*>(out + (gp.x + j * G::TX) * 4) =
+          make_float4(acc[i][j].x / lr, acc[i][j].y / lr, acc[i][j].z / lr,
+                      acc[i][j].w / lr);
   }
 }
 
-template <int D>
-int launch_fp32(const void* q, const void* k, const void* v, void* o,
-                void* lse, int b, int h, int h_kv, int s_q, int s_kv,
-                int causal, float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = Fp32Layout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <int D, int BM>
+int launch_fp32_rows(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int b, int h, int h_kv, int s_q, int s_kv,
+                     int causal, float sm_scale, cudaStream_t stream) {
+  const auto kernel = sm_scale >= 0.0f ? flash_fwd_fp32_kernel<D, BM, true>
+                                       : flash_fwd_fp32_kernel<D, BM, false>;
+  constexpr size_t smem = FwdFp32<D, BM>::bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s_q + BLOCK_M - 1) / BLOCK_M, h, b);
-  flash_fwd_fp32_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const int grid = (s_q + BM - 1) / BM * b * h;
+  kernel<<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), h, h_kv, s_q, s_kv, causal, sm_scale);
   return (int)cudaGetLastError();
+}
+
+// The largest slice (BM q rows: 64 at d 64, 32 at d 128) that still gives
+// two CTAs for each SM, halved down to 16 while it does not.
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, void* o,
+                void* lse, int b, int h, int h_kv, int s_q, int s_kv,
+                int causal, float sm_scale, int device, cudaStream_t stream) {
+  const int sms = sm_count(device);
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const auto fills = [&](int rows) {
+    return (long long)b * h * ((s_q + rows - 1) / rows) >= 2LL * sms;
+  };
+  if constexpr (D == 64)
+    if (fills(64))
+      return launch_fp32_rows<D, 64>(q, k, v, o, lse, b, h, h_kv, s_q, s_kv,
+                                     causal, sm_scale, stream);
+  if (fills(32))
+    return launch_fp32_rows<D, 32>(q, k, v, o, lse, b, h, h_kv, s_q, s_kv,
+                                   causal, sm_scale, stream);
+  return launch_fp32_rows<D, 16>(q, k, v, o, lse, b, h, h_kv, s_q, s_kv,
+                                 causal, sm_scale, stream);
 }
 
 }  // namespace
@@ -569,10 +741,10 @@ int ray_tpu_flash_fwd(const void* q, const void* k, const void* v, void* o,
                               sm_scale, device, st);
   if (dtype == 1 && d == 64)
     return launch_fp32<64>(q, k, v, o, lse, b, h, h_kv, s_q, s_kv, causal,
-                           sm_scale, st);
+                           sm_scale, device, st);
   if (dtype == 1 && d == 128)
     return launch_fp32<128>(q, k, v, o, lse, b, h, h_kv, s_q, s_kv, causal,
-                            sm_scale, st);
+                            sm_scale, device, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -56,7 +56,9 @@ CASES = [
     (1, 60, 60, 1, 1, 128, "fp32", True),        # width: train, evaluate
 ]
 # the forward kernel's edges: a CTA owns 128 q rows, 64 per consumer
-# warpgroup, and walks 128-key tiles
+# warpgroup, and walks 128-key tiles.  fp32: a CTA owns 64 q rows (32 at
+# d 128), halved down to 16 where the grid would not give each SM two CTAs,
+# and walks 32-key tiles
 FWD_EDGE_CASES = [
     (4, 1024, 1024, 32, 8, 64, "bf16", True),    # llama-1b training shape
     (1, 17, 17, 4, 2, 64, "bf16", True),         # one consumer idle
@@ -65,6 +67,16 @@ FWD_EDGE_CASES = [
     (1, 129, 129, 4, 2, 64, "bf16", True),       # one key in the last tile
     (1, 300, 100, 4, 2, 64, "bf16", True),       # dead rows over 2 CTAs
     (1, 384, 300, 4, 2, 128, "bf16", False),     # d 128, non-causal
+    (1, 17, 17, 4, 2, 64, "fp32", True),         # one ragged 16-row slice
+    (2, 60, 60, 1, 1, 128, "fp32", True),        # DT's 60 rows, 16 a CTA
+    (1, 129, 129, 4, 2, 64, "fp32", True),       # one row, one key past 128
+    (1, 300, 100, 4, 2, 128, "fp32", True),      # s_q > s_kv: dead rows
+    (1, 2048, 1000, 8, 2, 64, "fp32", True),     # ... in 32-row slices
+    (1, 256, 256, 8, 2, 64, "fp32", True),       # GQA group 4
+    (1, 384, 300, 4, 2, 128, "fp32", False),     # d 128, non-causal
+    (1, 200, 200, 1, 1, 64, "fp32", True),       # b * h = 1
+    (64, 128, 128, 12, 4, 64, "fp32", True),     # b * h >> 132: 64 rows,
+    (16, 256, 256, 16, 16, 128, "fp32", True),   # 32 rows a CTA
 ]
 # the backward kernels' edges: a dK/dV item is 128 keys (64 per consumer
 # warpgroup) walking q tiles of 128 rows (64 at d 128); a dQ item is 128
@@ -132,7 +144,7 @@ def test_flash_fwd_matches_plain(cuda, b, s_q, s_kv, h, h_kv, d, dtype,
 
 
 @pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,d,dtype,causal",
-                         [c for c in CASES if c[6] == "bf16"])
+                         [c for c in CASES if c[4] > 1])   # GQA or MHA
 def test_flash_fwd_tile_error_refuses_planted_faults(cuda, b, s_q, s_kv, h,
                                                      h_kv, d, dtype, causal):
     """O with its last q tile zeroed, with V from another KV head, and with
@@ -146,18 +158,37 @@ def test_flash_fwd_tile_error_refuses_planted_faults(cuda, b, s_q, s_kv, h,
         assert tile_rel_err(bad, o) > 10 * FWD_TILE_TOL[dtype], what
 
 
+@pytest.mark.parametrize("dtype,d", [("bf16", 64), ("fp32", 64),
+                                     ("fp32", 128)])
 @pytest.mark.parametrize("sm_scale", [-0.125, 0.0, 1e-3])
-def test_flash_fwd_matches_plain_at_any_softmax_scale(cuda, sm_scale):
+def test_flash_fwd_matches_plain_at_any_softmax_scale(cuda, sm_scale, dtype,
+                                                      d):
     """A scale >= 0 is folded into the exponent, a negative one (which
     reverses the order of the scores) is applied first; 0 is uniform."""
-    q, k, v = _qkv(6, 1, 300, 300, 4, 2, 64, "bf16", cuda)
+    q, k, v = _qkv(6, 1, 300, 300, 4, 2, d, dtype, cuda)
     o, lse = flash_fwd(q, k, v, True, sm_scale)
     o_ref, lse_ref = flash_attention_plain(q, k, v, True, sm_scale)
-    tol_o, tol_lse = TOL["bf16"]
+    tol_o, tol_lse = TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol_o,
                                rtol=tol_o)
     torch.testing.assert_close(lse, lse_ref, atol=tol_lse, rtol=0)
-    assert tile_rel_err(o, o_ref) <= FWD_TILE_TOL["bf16"]
+    assert tile_rel_err(o, o_ref) <= FWD_TILE_TOL[dtype]
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h,h_kv,d,causal", [
+    (64, 60, 60, 1, 1, 128, True),       # DT: 16 rows a CTA
+    (1, 1024, 1024, 32, 8, 64, True),    # 64 rows a CTA
+    (1, 384, 300, 4, 2, 128, False),
+])
+def test_flash_fwd_is_bitwise_deterministic_in_fp32(cuda, b, s_q, s_kv, h,
+                                                    h_kv, d, causal):
+    """No atomics and no sums across CTAs: each row's O and LSE are written
+    once by the CTA that owns it, so two calls give the same bits."""
+    q, k, v = _qkv(8, b, s_q, s_kv, h, h_kv, d, "fp32", cuda)
+    first = flash_fwd(q, k, v, causal, d ** -0.5)
+    second = flash_fwd(q, k, v, causal, d ** -0.5)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
 
 
 def test_flash_fwd_rejects_what_the_kernel_does_not_take(cuda):

@@ -50,7 +50,7 @@ def _np(x):
 FLASH_TOL = {"fp32": (1e-5, 1e-5), "bf16": (2e-2, 1e-4)}
 
 
-@pytest.mark.parametrize("dtype,b,s_q,s_kv,h,h_kv,causal", [
+_FLASH_CASES = [   # dtype, b, s_q, s_kv, h, h_kv, causal at d 64
     ("fp32", 1, 64, 64, 4, 2, True),     # GQA, causal, s_q = s_kv
     ("bf16", 1, 64, 64, 4, 2, True),
     ("fp32", 2, 64, 64, 2, 2, True),     # MHA
@@ -59,20 +59,38 @@ FLASH_TOL = {"fp32": (1e-5, 1e-5), "bf16": (2e-2, 1e-4)}
     ("bf16", 1, 64, 32, 4, 2, True),
     ("fp32", 1, 32, 64, 4, 2, False),    # non-causal
     ("bf16", 1, 64, 64, 4, 1, False),
+]
+
+
+@pytest.mark.parametrize("dtype,b,s_q,s_kv,h,h_kv,causal,d,sm_scale,block", [
+    *(pytest.param(*c, 64, None, 16, id="-".join(map(str, c)))
+      for c in _FLASH_CASES),
+    # the fp32 route at the Decision Transformer's width (one head of 128,
+    # 60 rows: blocks of 20), 64 rows in blocks of 16, and negative scales
+    # (the max is then taken after scaling)
+    pytest.param("fp32", 1, 60, 60, 1, 1, True, 128, None, 20,
+                 id="fp32-dt-60-d128"),
+    pytest.param("fp32", 2, 64, 64, 1, 1, True, 128, None, 16,
+                 id="fp32-64-d128"),
+    pytest.param("fp32", 1, 60, 60, 1, 1, True, 128, -0.125, 20,
+                 id="fp32-dt-60-d128-negative-scale"),
+    pytest.param("fp32", 1, 64, 64, 4, 2, True, 64, -0.125, 16,
+                 id="fp32-64-gqa-negative-scale"),
 ])
 def test_flash_plain_matches_pallas_kernel(monkeypatch, dtype, b, s_q, s_kv,
-                                           h, h_kv, causal):
+                                           h, h_kv, causal, d, sm_scale,
+                                           block):
     monkeypatch.setenv("RAY_TPU_PALLAS_INTERPRET", "1")
     rng = np.random.default_rng(7)
-    d = 64
     (jq, q), (jk, k), (jv, v) = (
         _pair(rng, (b, s_q, h, d), dtype), _pair(rng, (b, s_kv, h_kv, d), dtype),
         _pair(rng, (b, s_kv, h_kv, d), dtype))
-    scale = d ** -0.5
-    # block_q 16, block_k 16: several k-blocks per row, skipped blocks too
+    scale = d ** -0.5 if sm_scale is None else sm_scale
+    # blocks of 16 (or 20) rows and keys: several k-blocks per row, skipped
+    # blocks too
     jo, jlse = jflash._flash_fwd(
         jnp.swapaxes(jq, 1, 2), jnp.swapaxes(jk, 1, 2),
-        jnp.swapaxes(jv, 1, 2), causal, scale, 16, 16)
+        jnp.swapaxes(jv, 1, 2), causal, scale, block, block)
     o, lse = tops.flash_attention_plain(q, k, v, causal, scale)
     assert o.dtype == TORCH[dtype] and lse.dtype == torch.float32
     tol_o, tol_lse = FLASH_TOL[dtype]
