@@ -306,6 +306,13 @@ RL_GRAD_TOL, RL_MOMENT_TOL, RL_PARAM_STEPS, RL_LOSS_TOL = \
 # a sampled action may differ only where pi + noise had its top two this
 # close (fp32 logits of about 0.1 carry errors of about 1e-8)
 RL_TIE = 1e-5
+# the parallel phase: attention at the llama-1b train shape (b, s, heads,
+# kv heads, head dim), train steps a side, and DD-PPO's card = CPU
+# iteration (CartPole, 16 envs x 16 steps at DDPPOConfig's 4 epochs x 4
+# minibatches: 16 Adam steps, bounded as the rl phase's update)
+PAR_ATTENTION = (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 64)
+PAR_TRAIN_STEPS = 5
+PAR_DDPPO_PARITY = dict(num_envs=16, rollout_length=16, seed=0)
 # the offpolicy phase: double DQN on CartPole at the JAX package's DQN row
 # (tpu_probe2.py:107-111, stage rl_dqn_tpu) and Rainbow at its sizes; PG on
 # CartPole at the PPO CartPole row's 128 x 128 (tpu_probe.py:219-220) with
@@ -3614,6 +3621,253 @@ def phase_rl_rest(card, ops):
     return launches, out
 
 
+# -- parallel: the mesh, sequence parallelism, a sharded step, DD-PPO ------
+
+def par_attention(card, ops, mesh):
+    """Ulysses and the ring shard function at axis size 1 at the llama-1b
+    train attention shape (PAR_ATTENTION), each against reference attention
+    forward and backward at the bf16 kernels' bound (BWD_TOL, TILE_TOL):
+    Ulysses with 1/1/1 launches a call (fwd, dq, dkv), the ring (dense,
+    fp32 statistics) with none; then Ulysses' device time (profiler) and
+    wall a call (CUDA events) beside the flash kernels' own, forward and
+    forward + backward.  → (launches of the checked calls, results)."""
+    from ray_tpu_torch.ops.attention import reference_attention
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.ring_attention import (ring_attention_shard,
+                                                  ulysses_attention_shard)
+
+    b, s, h, hk, d = PAR_ATTENTION
+    dt = torch.bfloat16
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    q, k, v = qkv(7, b, s, s, h, hk, d, dt)
+    do = randn(8, (b, s, h, d), dt)
+
+    def run(fn):
+        ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*ins)
+        return (o.detach(), *torch.autograd.grad(o, ins, do))
+
+    want = run(lambda *a: reference_attention(*a, causal=True))
+    on_card("parallel: reference attention")
+    sides = {
+        "ulysses": lambda *a: ulysses_attention_shard(
+            *a, axis_name="sp", causal=True, mesh=mesh),
+        "ring": lambda *a: ring_attention_shard(
+            *a, axis_name="sp", axis_size=1, causal=True, mesh=mesh)}
+    launches, out = {}, {}
+    for name, fn in sides.items():
+        for kernel in kernels:
+            kernel.launches = 0
+        got = run(fn)
+        on_card(f"parallel: {name}")
+        launches[name] = {kk.__name__: kk.launches for kk in kernels}
+        errs = {}
+        for what, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+            # the bf16 kernels' bound (2e-2 elementwise, 1e-2 a tile)
+            ok, tile = bwd_matches(g, w, dt)
+            errs[what] = float((g.float() - w.float()).abs().max())
+            if not ok:
+                raise AssertionError(
+                    f"parallel: {name} {what} differs from reference "
+                    f"attention by {errs[what]:.3e} (tile {tile:.3e})")
+        expect = 1 if name == "ulysses" else 0
+        if set(launches[name].values()) != {expect}:
+            raise AssertionError(f"parallel: {name} launched "
+                                 f"{launches[name]}, expected {expect} each")
+        out[name] = {"max_abs_err": errs, "launches": launches[name]}
+        log(f"  {name} (sp=1) against reference attention at b {b} s {s} "
+            f"h {h}/{hk} d {d} bf16: max |diff| " + ", ".join(
+                f"{kk} {e:.3e}" for kk, e in errs.items())
+            + f"; launches {launches[name]}")
+    ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+    def fwd_bwd(fn):
+        o = fn(*ins)
+        torch.autograd.grad(o, ins, do)
+
+    calls = {
+        "ulysses_fwd": lambda: sides["ulysses"](q, k, v),
+        "flash_fwd": lambda: flash_attention(q, k, v, causal=True),
+        "ulysses_fwd_bwd": lambda: fwd_bwd(sides["ulysses"]),
+        "flash_fwd_bwd": lambda: fwd_bwd(
+            lambda *a: flash_attention(*a, causal=True))}
+    # device time from the profiler; the wall a call back to back from
+    # CUDA events, which grows where the host takes longer than the kernels
+    out["device_ms"] = {kk: device_ms(fn) for kk, fn in calls.items()}
+    out["wall_ms"] = {kk: cuda_ms(fn, 20) for kk, fn in calls.items()}
+    log("  Ulysses (sp=1) against the flash kernels at that shape, device "
+        "ms (profiler): " + ", ".join(f"{kk} {t:.4f}" for kk, t in
+                                      out["device_ms"].items())
+        + "; wall ms a call back to back (CUDA events): " + ", ".join(
+            f"{kk} {t:.4f}" for kk, t in out["wall_ms"].items())
+        + f" [{card}]")
+    return launches["ulysses"], out
+
+
+def par_train(card, ops, mesh):
+    """llama-1b at the train phase's settings: the plain step and the step
+    under a one-rank mesh with the weights placed by FSDP_TP_RULES as
+    DTensors, from the same weights and batch.  The first loss and grad
+    norm must be equal bitwise (every collective is skipped or copies at
+    size 1, so the sharded step runs the plain step's products in the same
+    order); the sharded steps launch fwd 32, dq 16, dkv 16 a step (two
+    forwards a layer under remat "dots").  → (launches, results)."""
+    from ray_tpu_torch.models import (TransformerConfig, init_params,
+                                      local_leaves, make_train_step,
+                                      param_leaves, params_axes)
+    from ray_tpu_torch.parallel import FSDP_TP_RULES, shard_pytree, use_mesh
+    from ray_tpu_torch.rl.policy import tree_map
+
+    cfg = TransformerConfig.llama("1b", max_seq_len=TRAIN_SEQ, remat="dots",
+                                  norm_remat=True, loss_chunk=128,
+                                  param_dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    placed = shard_pytree(tree_map(torch.clone, params),
+                          params_axes(cfg), mesh, FSDP_TP_RULES)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")}
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+
+    def steps(step, params, n):
+        walls, first = [], None
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(params, batch)
+            m = {kk: float(v) for kk, v in m.items()}     # syncs
+            walls.append((time.perf_counter() - t0) * 1e3)
+            first = first or m
+        return first, float(np.median(walls[1:]))
+
+    opt = torch.optim.AdamW(param_leaves(params), lr=3e-4, weight_decay=0.1)
+    plain, plain_ms = steps(make_train_step(cfg, opt), params,
+                            PAR_TRAIN_STEPS)
+    del opt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = torch.optim.AdamW(local_leaves(placed), lr=3e-4, weight_decay=0.1)
+    for kernel in kernels:
+        kernel.launches = 0
+    with use_mesh(mesh):
+        sharded, sharded_ms = steps(make_train_step(cfg, opt), placed,
+                                    PAR_TRAIN_STEPS)
+    launches = {kk.__name__: kk.launches for kk in kernels}
+    per_step = {name: n / PAR_TRAIN_STEPS for name, n in launches.items()}
+    log(f"  llama-1b step, plain: loss {plain['loss']!r} grad_norm "
+        f"{plain['grad_norm']!r}, {plain_ms:.2f} ms; under the mesh with "
+        f"FSDP_TP_RULES DTensors: loss {sharded['loss']!r} grad_norm "
+        f"{sharded['grad_norm']!r}, {sharded_ms:.2f} ms (medians of steps "
+        f"2-{PAR_TRAIN_STEPS}); launches {per_step} a step [{card}]")
+    if (sharded["loss"], sharded["grad_norm"]) != (plain["loss"],
+                                                   plain["grad_norm"]):
+        raise AssertionError("parallel: the sharded step's first loss or "
+                             "grad norm is not the plain step's")
+    # remat "dots" runs each layer's forward again in the backward
+    L = cfg.n_layers
+    if per_step != {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                    "flash_bwd_dkv": L}:
+        raise AssertionError(f"parallel: the sharded step launched "
+                             f"{per_step} a step")
+    del opt, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"first_loss": sharded["loss"],
+                      "first_grad_norm": sharded["grad_norm"],
+                      "plain_step_ms": plain_ms,
+                      "sharded_step_ms": sharded_ms,
+                      "launches_per_step": per_step}
+
+
+def par_ddppo(card, mesh):
+    """DD-PPO with one learner: one iteration (CartPole, PAR_DDPPO_PARITY)
+    on the card against the CPU from the same weights, resets, draws and
+    permutations, full fp32 (params within RL_PARAM_STEPS of an Adam step,
+    loss parts within RL_LOSS_TOL); then at DDPPOConfig's defaults on
+    CartPole a warm iteration and RL_TIMED_ITERS timed ones."""
+    from ray_tpu_torch.rl import CartPole, DDPPO, DDPPOConfig
+    from ray_tpu_torch.rl.policy import tree_leaves, tree_map
+
+    sides = {dev: DDPPO(DDPPOConfig(env=CartPole, device=dev,
+                                    **PAR_DDPPO_PARITY), mesh=mesh)
+             for dev in ("cpu", "cuda")}
+    cpu, gpu = sides["cpu"], sides["cuda"]
+    gpu.params = tree_map(lambda x: x.to("cuda"), cpu.params)
+    gpu.opt_state = gpu.optimizer.init(gpu.params)
+    gpu.env_states = tree_map(lambda x: x.to("cuda"), cpu.env_states)
+    gpu.obs = cpu.obs.to("cuda")
+    gen = torch.Generator().manual_seed(1)
+    n, steps = PAR_DDPPO_PARITY["num_envs"], \
+        PAR_DDPPO_PARITY["rollout_length"]
+    draws = [{"noise": cpu.policy.draw_noise(n, gen),
+              "reset": cpu.env.reset_draws(n, gen)} for _ in range(steps)]
+    perms = torch.stack([torch.randperm(n * steps, generator=gen)
+                         for _ in range(cpu.config.num_sgd_epochs)])
+    with fp32_ieee():
+        want = cpu.training_step(draws=draws, perms=perms)
+        got = gpu.training_step(draws=tree_map(lambda x: x.to("cuda"), draws),
+                                perms=perms.to("cuda"))
+    on_card("parallel: the DD-PPO iteration")
+    parts = ("pi_loss", "vf_loss", "entropy")
+    lr = cpu.config.lr
+    in_steps = max(float((g.cpu() - c).abs().max()) / lr for g, c in
+                   zip(tree_leaves(gpu.params), tree_leaves(cpu.params)))
+    loss_err = max(abs(got[kk] - want[kk]) for kk in parts)
+    log(f"  DD-PPO, 1 learner, card = CPU ({n} envs x {steps} steps, fp32): "
+        f"reward_sum {got['reward_sum']} / {want['reward_sum']}, params "
+        f"{in_steps:.3f} of an Adam step, loss parts {loss_err:.3e} apart "
+        f"[{card}]")
+    if got["reward_sum"] != want["reward_sum"]:
+        raise AssertionError("parallel: DD-PPO's card rewards differ")
+    if in_steps > RL_PARAM_STEPS or not all(
+            np.isclose(got[kk], want[kk], rtol=RL_LOSS_TOL[0],
+                       atol=RL_LOSS_TOL[1]) for kk in parts):
+        raise AssertionError("parallel: DD-PPO on the card differs from the "
+                             "CPU")
+    algo = DDPPO(DDPPOConfig(env=CartPole, seed=0), mesh=mesh)
+    algo.train()
+    rates, result = [], None
+    for _ in range(RL_TIMED_ITERS):
+        result = algo.train()
+        rates.append(result["env_steps_per_s"])
+    if not np.isfinite(result["pi_loss"]):
+        raise AssertionError("parallel: DD-PPO's loss is not finite")
+    rate = float(np.median(rates))
+    log(f"  DD-PPO at DDPPOConfig's defaults (CartPole, "
+        f"{algo.config.num_envs} envs x {algo.config.rollout_length} steps, "
+        f"1 learner): {rate:.0f} env-steps/s (median of {RL_TIMED_ITERS}), "
+        f"episode_reward_mean {result['episode_reward_mean']:.2f} [{card}]")
+    return {"card_equals_cpu": {"params_in_steps": in_steps,
+                                "loss_parts": loss_err},
+            "env_steps_per_s": rate}
+
+
+def phase_parallel(card, ops):
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshSpec, create_mesh
+    from ray_tpu_torch.parallel.mesh import slice_topology
+
+    log("== parallel: a one-rank NCCL mesh; Ulysses and the ring at the "
+        "llama-1b train attention shape; the llama-1b step with "
+        "FSDP_TP_RULES DTensors; DD-PPO with one learner")
+    mesh = create_mesh(MeshSpec(), device="cuda")
+    try:
+        topology = slice_topology()
+        log(f"  mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}, "
+            f"topology {topology}")
+        attn_launches, attention = par_attention(card, ops, mesh)
+        train_launches, train = par_train(card, ops, mesh)
+        ddppo = par_ddppo(card, mesh)
+    finally:
+        dist.destroy_process_group()
+    launches = {name: attn_launches[name] + train_launches[name]
+                for name in attn_launches}
+    return launches, {"topology": topology, "attention": attention,
+                      "train": train, "ddppo": ddppo}
+
+
 def top_kernels(by_name, n):
     """The ``n`` kernels with the most device time, then the port's own
     (flash_*) kernels that are not among them."""
@@ -3933,6 +4187,8 @@ def main():
     by_path["rl_breadth"], rl_breadth = timed("rl_breadth",
                                               phase_rl_breadth, card, ops)
     by_path["rl_rest"], rl_rest = timed("rl_rest", phase_rl_rest, card, ops)
+    by_path["parallel"], parallel = timed("parallel", phase_parallel, card,
+                                          ops)
     by_path.update(moe_paths)
     by_path.update(vit_paths)
     log(f"  phase seconds: {json.dumps(seconds)}")
@@ -3950,6 +4206,7 @@ def main():
     print(json.dumps({"rl_breadth": rl_breadth,
                       "seconds": seconds["rl_breadth"]}))
     print(json.dumps({"rl_rest": rl_rest, "seconds": seconds["rl_rest"]}))
+    print(json.dumps({"parallel": parallel, "seconds": seconds["parallel"]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

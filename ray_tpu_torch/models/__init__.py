@@ -28,9 +28,11 @@ from .transformer import (  # noqa: F401
     forward_with_aux,
     init_params,
     lm_loss,
+    local_leaves,
     make_train_step,
     param_leaves,
     param_shapes,
+    params_axes,
     remat_policy,
 )
 from .vit import (  # noqa: F401
@@ -40,4 +42,5 @@ from .vit import (  # noqa: F401
     vit_forward,
     vit_loss,
     vit_param_shapes,
+    vit_params_axes,
 )

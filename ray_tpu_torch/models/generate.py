@@ -60,10 +60,18 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
             "pos": 0}
 
 
+def _check_decodable(cfg: TransformerConfig) -> None:
+    if cfg.pp_stages > 1:
+        raise NotImplementedError(
+            "KV-cache decode over a pipeline mesh is not supported; "
+            "serve pp-sharded models stage-per-gang instead")
+
+
 def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt; → (logits of the LAST position [B, vocab] fp32,
     cache holding the prompt's K/V with pos = prompt length)."""
+    _check_decodable(cfg)
     s = tokens.shape[1]
     if s > cache["k"].shape[2]:
         raise ValueError(f"prompt length {s} exceeds cache capacity "
@@ -118,6 +126,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: KVCache,
     `jax.lax.dynamic_update_slice` and `dynamic_slice` clamp their start,
     so the step rewrites the last cache row with the last row's rotary
     angles, attends over the whole cache, and ``pos`` still advances."""
+    _check_decodable(cfg)
     dt = cfg.dtype
     pos = cache["pos"]
     max_len = cache["k"].shape[2]
@@ -158,6 +167,7 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, cache: KVCache,
     to ``max_len - C`` (``max_seq_len - C``), as the JAX package's
     ``dynamic_update_slice`` / ``dynamic_slice`` do; the mask keeps the
     unshifted positions."""
+    _check_decodable(cfg)
     b, c = tokens.shape
     dt = cfg.dtype
     pos = int(cache["pos"])
@@ -359,6 +369,7 @@ def decode_step_slots(params: Params, token: torch.Tensor, cache: KVCache,
     before any read.  A slot at ``pos >= max_len`` has its write dropped
     and its angles taken from the last row, as XLA's scatter and gather
     do (unlike the batch-1 `decode_step`, which rewrites the last row)."""
+    _check_decodable(cfg)
     x = _slot_forward(params, token[:, None], cache, cfg)
     logits = x[:, 0] @ _unembed(params, cfg)
     return logits.float(), {"k": cache["k"], "v": cache["v"],
@@ -398,6 +409,7 @@ def verify_step_slots(params: Params, tokens: torch.Tensor,
     by ``accepted`` on active slots.  The K/V of every fed token is
     written at its position; rejected writes sit past the new ``pos`` and
     are rewritten before any read; writes past ``max_len`` are dropped."""
+    _check_decodable(cfg)
     x = _slot_forward(params, tokens, cache, cfg)
     logits = x @ _unembed(params, cfg)
     greedy = torch.argmax(logits, dim=-1)                      # [S, C]

@@ -11,9 +11,17 @@ Hopper flash kernels, forward and backward.  With ``n_experts > 0`` every
 layer's FFN is a mixture of experts (`ray_tpu_torch.ops.moe_ffn`), and the
 loss adds the router's load-balancing term.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than run
-otherwise: pipeline stages and ring attention (ROADMAP queue 1 items 8-9:
-sequence parallelism; mesh, sharding and pipeline).
+Under a mesh (`parallel.use_mesh`) the same functions run SPMD, one rank a
+device, as the JAX package's run under ``jax.set_mesh``: each rank takes
+its rows of the batch (split over ``dp`` × ``fsdp``); with
+``attention_impl="ring"`` and an ``sp`` axis wider than 1 each rank runs
+its block of the sequence (positions and rotary angles offset to its
+place, attention by `ops.ring_attention`); with ``pp_stages > 1`` the layer
+stack runs as a GPipe pipeline over ``pp`` (`parallel.pipeline`).  The
+loss is the global batch's on every rank.  `params_axes` gives the logical
+axes `parallel.shard_pytree` places the weights by; `make_train_step`
+gathers placed weights (DTensors) for the products and hands each gradient
+back in its weight's placement.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -34,6 +44,11 @@ from ..ops.attention import multi_head_attention
 from ..ops.moe import moe_ffn
 from ..ops.norms import layernorm, rmsnorm
 from ..ops.rotary import apply_rotary, rotary_angles
+from ..parallel.collectives import (all_gather, all_gather_invariant,
+                                    axis_index, psum)
+from ..parallel.mesh import axis_size, current_mesh
+from ..parallel.pipeline import microbatch, pipeline_apply, unmicrobatch
+from ..parallel.sharding import batch_rows, gather_for_compute
 
 Params = Dict[str, Any]
 
@@ -54,7 +69,7 @@ class TransformerConfig:
     rope_base: float = 10000.0
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
-    attention_impl: str = "auto"      # "auto" | "flash" | "reference"
+    attention_impl: str = "auto"      # "auto"|"flash"|"reference"|"ring"
     causal: bool = True               # False → bidirectional (encoders)
     remat: Any = True                 # False | True (full) | "dots": save
     #   the outputs of products without batch dimensions, recompute the rest
@@ -62,24 +77,14 @@ class TransformerConfig:
     norm_remat: bool = False          # recompute the norms in the backward
     loss_chunk: int = 0               # >0 → cross entropy [b, chunk, vocab]
     #   logits at a time, each chunk recomputed in the backward
-    pp_stages: int = 1
+    # -- pipeline parallelism (parallel/pipeline.py) -------------------------
+    pp_stages: int = 1                # >1 → GPipe schedule over mesh "pp"
+    pp_microbatches: Optional[int] = None  # None → pp_stages
     # -- mixture of experts (ops/moe.py) ------------------------------------
     n_experts: int = 0                # 0 → dense FFN
     expert_top_k: int = 2
     capacity_factor: float = 2.0
     router_aux_weight: float = 0.01   # Switch load-balancing loss weight
-
-    def __post_init__(self):
-        if self.pp_stages > 1:
-            raise NotImplementedError(
-                "pipeline stages (pp_stages > 1) are not ported yet: they "
-                "come with the parallelism slice (ROADMAP queue 1 item 9, "
-                "ray_tpu/parallel/pipeline.py)")
-        if self.attention_impl == "ring":
-            raise NotImplementedError(
-                "ring attention is not ported yet: it comes with the "
-                "parallelism slice (ROADMAP queue 1 item 8, "
-                "ray_tpu/ops/ring_attention.py)")
 
     @property
     def head_dim(self) -> int:
@@ -237,6 +242,36 @@ def param_shapes(cfg: TransformerConfig) -> Params:
     return tree
 
 
+def params_axes(cfg: TransformerConfig) -> Params:
+    """The logical axes of every parameter (the JAX `init_params`' second
+    tree, leaf for leaf): what `parallel.shard_pytree` places them by.
+    Stacked layer weights lead with "layers"."""
+    layers = {"attn_norm": ("layers", "embed"),
+              "wq": ("layers", "embed", "heads", "kv"),
+              "wk": ("layers", "embed", "heads", "kv"),
+              "wv": ("layers", "embed", "heads", "kv"),
+              "wo": ("layers", "heads", "kv", "embed"),
+              "mlp_norm": ("layers", "embed")}
+    experts = ("expert",) if cfg.n_experts else ()
+    if cfg.n_experts:
+        layers["router"] = ("layers", "embed", "expert")
+    layers["w_in"] = ("layers", *experts, "embed", "mlp")
+    layers["w_out"] = ("layers", *experts, "mlp", "embed")
+    if cfg.activation == "swiglu":
+        layers["w_gate"] = ("layers", *experts, "embed", "mlp")
+    tree: Params = {"embed": {"tok": ("vocab", "embed")}, "layers": layers,
+                    "final_norm": ("embed",)}
+    if cfg.norm == "layernorm":
+        layers["attn_norm_b"] = ("layers", "embed")
+        layers["mlp_norm_b"] = ("layers", "embed")
+        tree["final_norm_b"] = ("embed",)
+    if cfg.pos_emb == "learned":
+        tree["embed"]["pos"] = (None, "embed")
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("embed", "vocab")
+    return tree
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Params:
     """Random weights drawn from ``generator`` on ``device``, with the JAX
@@ -270,6 +305,54 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+
+# the mesh axes a batch splits over (every rule table's "batch")
+BATCH_AXES = ("dp", "fsdp")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """Where this rank sits in the mesh, as the model sees it.  Each entry
+    point (`forward_with_aux`, `lm_loss`) reads the ambient mesh once and
+    hands its layout down to every layer: a layer recomputed in the
+    backward (remat) then runs as in the forward, wherever the backward
+    is taken."""
+    mesh: Optional[DeviceMesh] = None
+    sp: int = 1              # ranks the sequence is split over
+    sp_index: int = 0
+    batch_axes: Tuple[str, ...] = ()   # live axes the batch is split over
+
+    @property
+    def summed_axes(self) -> Tuple[str, ...]:
+        """The axes whose ranks compute on different data: their gradients
+        of a weight add up."""
+        return self.batch_axes + (("sp",) if self.sp > 1 else ())
+
+    def seq_block(self, s: int) -> Tuple[int, int]:
+        """This rank's positions [lo, hi) of a sequence of s."""
+        if s % self.sp:
+            raise ValueError(f"sequence of {s} does not split over "
+                             f"sp={self.sp} ranks")
+        c = s // self.sp
+        return self.sp_index * c, (self.sp_index + 1) * c
+
+
+def _layout(cfg: TransformerConfig) -> _Layout:
+    """The ambient mesh's layout for ``cfg``: the sequence splits over sp
+    only under ring attention (other attention needs the whole sequence,
+    so sp ranks then compute the same)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return _NO_MESH
+    sp = axis_size("sp", mesh) if cfg.attention_impl == "ring" else 1
+    return _Layout(mesh=mesh, sp=sp,
+                   sp_index=axis_index("sp", mesh) if sp > 1 else 0,
+                   batch_axes=tuple(a for a in BATCH_AXES
+                                    if axis_size(a, mesh) > 1))
+
+
+_NO_MESH = _Layout()
+
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 _ONE_HOT_CHUNK = 1024   # tokens per one-hot block: [1024, vocab] at a time
@@ -323,7 +406,8 @@ def _layer_params(params: Params, i: int) -> Params:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-def _layer_kv(cfg: TransformerConfig, x: torch.Tensor, lp: Params, cos, sin):
+def _layer_kv(cfg: TransformerConfig, x: torch.Tensor, lp: Params, cos, sin,
+              lay: _Layout = _NO_MESH):
     """One transformer block → (x, router aux, k, v); prefill keeps k and v
     for the cache instead of projecting them a second time."""
     dt = cfg.dtype
@@ -336,32 +420,33 @@ def _layer_kv(cfg: TransformerConfig, x: torch.Tensor, lp: Params, cos, sin):
     k, v = _project_kv(cfg, y, lp, cos, sin)
     if cfg.pos_emb == "rope":
         q = apply_rotary(q, cos, sin)
-    attn = multi_head_attention(q, k, v, causal=cfg.causal,
-                                impl=cfg.attention_impl)
+    impl = cfg.attention_impl
+    if impl == "ring" and lay.sp == 1:
+        impl = "reference"          # the whole sequence is on this rank
+    attn = multi_head_attention(q, k, v, causal=cfg.causal, impl=impl,
+                                mesh=lay.mesh)
     x = x + attn.flatten(2) @ lp["wo"].to(dt).flatten(0, 1)
     y = norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_b"))
-    z, aux = _ffn(cfg, y, lp)
+    z, aux = _ffn(cfg, y, lp, lay)
     return x + z, aux, k, v
 
 
 def _layer(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
-           cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
+           cos, sin, lay: _Layout) -> Tuple[torch.Tensor, torch.Tensor]:
     """One transformer block; returns (x, router_aux_loss)."""
-    x, aux, _, _ = _layer_kv(cfg, x, lp, cos, sin)
+    x, aux, _, _ = _layer_kv(cfg, x, lp, cos, sin, lay)
     return x, aux
 
 
-def _ffn(cfg: TransformerConfig, y: torch.Tensor, lp: Params
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ffn(cfg: TransformerConfig, y: torch.Tensor, lp: Params,
+         lay: _Layout = _NO_MESH) -> Tuple[torch.Tensor, torch.Tensor]:
     """Post-attention FFN on a normed input, dense or a mixture of experts;
     ONE implementation shared by training, prefill and every decode path
     (`models/generate.py`).  → (residual delta, router aux loss; 0 for a
     dense FFN)."""
     dt = cfg.dtype
     if cfg.n_experts:
-        return moe_ffn(y, lp["router"], lp["w_in"], lp["w_out"],
-                       lp.get("w_gate"), top_k=cfg.expert_top_k,
-                       capacity_factor=cfg.capacity_factor)
+        return _moe(cfg, y, lp, lay)
     aux = torch.zeros((), dtype=torch.float32, device=y.device)
     if cfg.activation == "swiglu":
         up = y @ lp["w_in"].to(dt)
@@ -371,6 +456,32 @@ def _ffn(cfg: TransformerConfig, y: torch.Tensor, lp: Params
         # jax.nn.gelu defaults to the tanh approximation
         z = F.gelu(y @ lp["w_in"].to(dt), approximate="tanh")
     return z @ lp["w_out"].to(dt), aux
+
+
+def _moe(cfg: TransformerConfig, y: torch.Tensor, lp: Params, lay: _Layout
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mixture-of-experts FFN.  Under a mesh its router statistics
+    average over every rank's rows; where the sequence splits over sp, the
+    experts run on the whole sequence (each batch row's capacity counts
+    over all its tokens, as in JAX) and each rank keeps its block, and the
+    aux loss, the same on every sp rank, is taken once over them."""
+    mean = None
+    if lay.sp > 1:
+        y = all_gather(y, "sp", 1, lay.mesh)
+    if lay.batch_axes:
+        count = y.shape[0] * y.shape[1] * math.prod(
+            axis_size(a, lay.mesh) for a in lay.batch_axes)
+
+        def mean(x):
+            return psum(x.sum(dim=(0, 1)), lay.batch_axes, lay.mesh) / count
+
+    z, aux = moe_ffn(y, lp["router"], lp["w_in"], lp["w_out"],
+                     lp.get("w_gate"), top_k=cfg.expert_top_k,
+                     capacity_factor=cfg.capacity_factor, batch_mean=mean)
+    if lay.sp > 1:
+        lo, hi = lay.seq_block(y.shape[1])
+        z, aux = z[:, lo:hi], psum(aux / lay.sp, "sp", lay.mesh)
+    return z, aux
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -393,24 +504,63 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     return x
 
 
-def _trunk(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _trunk(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+           lay: _Layout) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [b, s] → (hidden [b, s, d] after the final norm, in
-    cfg.dtype; mean router aux).  While grad is enabled, each layer runs
-    under `torch.utils.checkpoint` as ``cfg.remat`` says and each norm
-    under its own when ``cfg.norm_remat``; without grad it runs plainly."""
+    cfg.dtype, on this rank's positions of ``lay``; mean router aux).
+    While grad is enabled, each layer runs under `torch.utils.checkpoint`
+    as ``cfg.remat`` says and each norm under its own when
+    ``cfg.norm_remat``; without grad it runs plainly."""
     s = tokens.shape[1]
-    x = _embed(params, tokens, cfg, slice(0, s), cfg.embed_impl)
+    lo, hi = lay.seq_block(s)
+    x = _embed(params, tokens[:, lo:hi], cfg, slice(lo, hi), cfg.embed_impl)
     cos, sin = (rotary_angles(s, cfg.head_dim, cfg.rope_base,
                               device=x.device)
                 if cfg.pos_emb == "rope" else (None, None))
-    x, aux = _layers(cfg, x, params["layers"], cos, sin)
+    if cos is not None:
+        cos, sin = cos[lo:hi], sin[lo:hi]
+    if cfg.pp_stages > 1:
+        x, aux = _pipelined_layers(cfg, x, params["layers"], cos, sin, lay)
+    else:
+        x, aux = _layers(cfg, x, params["layers"], cos, sin, lay)
+        aux = aux / cfg.n_layers
     x = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
-    return x, aux / cfg.n_layers
+    return x, aux
+
+
+def _pipelined_layers(cfg: TransformerConfig, x: torch.Tensor,
+                      stacked: Params, cos, sin, lay: _Layout
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer stack as a GPipe pipeline over the mesh's pp axis
+    (`parallel.pipeline_apply`) → (x, mean router aux).  A stacked weight
+    is the whole stack, or a DTensor placed on pp whose local block is
+    this stage's slab (`make_train_step`)."""
+    pp = axis_size("pp", lay.mesh)
+    if cfg.n_layers % cfg.pp_stages:
+        raise ValueError(f"{cfg.n_layers} layers not divisible by "
+                         f"{cfg.pp_stages} pipeline stages")
+    if pp != cfg.pp_stages:
+        raise ValueError(f"pp_stages={cfg.pp_stages} needs an ambient mesh "
+                         f"whose pp axis has that size (it has {pp}); "
+                         f"enter parallel.use_mesh(mesh)")
+    n_micro = cfg.pp_microbatches or cfg.pp_stages
+
+    def stage_fn(slab, state):
+        h, aux = state
+        h, aux_l = _layers(cfg, h, slab, cos, sin, lay)
+        return h, aux + aux_l
+
+    zeros = torch.zeros((n_micro,), dtype=torch.float32, device=x.device)
+    h_mb, aux_mb = pipeline_apply(stage_fn, stacked,
+                                  (microbatch(x, n_micro), zeros),
+                                  n_stages=cfg.pp_stages, n_micro=n_micro,
+                                  mesh=lay.mesh)
+    return unmicrobatch(h_mb), aux_mb.sum() / (n_micro * cfg.n_layers)
 
 
 def _layers(cfg: TransformerConfig, x: torch.Tensor, stacked: Params,
-            cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
+            cos, sin, lay: _Layout = _NO_MESH
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer stack over stacked weights [L, ...] → (x, the layers'
     summed router aux), each layer under `torch.utils.checkpoint` as
     ``cfg.remat`` says while grad is enabled; shared by every model family
@@ -422,13 +572,13 @@ def _layers(cfg: TransformerConfig, x: torch.Tensor, stacked: Params,
     # gradients in one write, as the JAX scan does, where a select per
     # layer would add a full-size zero-padded gradient once per layer
     layers = {name: w.unbind(0) for name, w in stacked.items()}
-    for i in range(cfg.n_layers):
+    for i in range(len(next(iter(layers.values())))):
         lp = {name: ws[i] for name, ws in layers.items()}
         if context_fn is not None and training:
-            x, aux_l = checkpoint(_layer, cfg, x, lp, cos, sin,
+            x, aux_l = checkpoint(_layer, cfg, x, lp, cos, sin, lay,
                                   use_reentrant=False, context_fn=context_fn)
         else:
-            x, aux_l = _layer(cfg, x, lp, cos, sin)
+            x, aux_l = _layer(cfg, x, lp, cos, sin, lay)
         aux = aux + aux_l
     return x, aux
 
@@ -443,11 +593,15 @@ def forward_with_aux(params: Params, tokens: torch.Tensor,
                      cfg: TransformerConfig
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [batch, seq] → (logits [batch, seq, vocab] fp32, mean router
-    aux loss)."""
-    x, aux = _trunk(params, tokens, cfg)
+    aux loss).  Under a mesh ``tokens`` are this rank's rows, and the
+    logits come back over the whole sequence on every rank."""
+    lay = _layout(cfg)
+    x, aux = _trunk(params, tokens, cfg, lay)
     # fp32 accumulation of cfg.dtype operands, as the JAX package's
     # preferred_element_type=float32: upcasting both operands is exact
     logits = x.float() @ _unembed(params, cfg).float()
+    if lay.sp > 1:
+        logits = all_gather_invariant(logits, "sp", 1, lay.mesh)
     return logits, aux
 
 
@@ -478,6 +632,8 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     so one [b, chunk, vocab] block of logits exists at a time instead of
     the full [b, s, vocab] fp32 tensor.  A mixture-of-experts model adds
     ``cfg.router_aux_weight`` times the layers' mean router aux loss.
+    Under a mesh ``batch`` holds this rank's rows, and every rank returns
+    the global batch's loss (`_summed_loss`).
     """
     # the model runs on the FULL sequence and the logits shift, as in JAX
     tokens = batch["tokens"]
@@ -489,28 +645,10 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
         # memory cliff loss_chunk exists to avoid
         raise ValueError(f"seq length {s} is not divisible by "
                          f"loss_chunk={cfg.loss_chunk}")
-    if cfg.loss_chunk:
-        x, aux = _trunk(params, tokens, cfg)
-        # fp32 accumulation of cfg.dtype operands, as forward_with_aux
-        w32 = _unembed(params, cfg).float()
-        # the LAST position's target is a dummy 0 with weight 0
-        zero = torch.zeros((b, 1), dtype=tokens.dtype, device=tokens.device)
-        targets = torch.cat([tokens[:, 1:], zero], dim=1).long()
-        valid = torch.ones((b, s), dtype=torch.float32, device=x.device)
-        valid[:, -1] = 0.0
-        if mask is not None:
-            valid[:, :-1] *= mask[:, 1:].float()
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(0, s, cfg.loss_chunk):
-            part = (x[:, i:i + cfg.loss_chunk], w32,
-                    targets[:, i:i + cfg.loss_chunk],
-                    valid[:, i:i + cfg.loss_chunk])
-            if torch.is_grad_enabled():
-                total = total + checkpoint(_chunk_loss_sum, *part,
-                                           use_reentrant=False)
-            else:
-                total = total + _chunk_loss_sum(*part)
-        return total / valid.sum().clamp_min(1.0) + aux_weight * aux
+    lay = _layout(cfg)
+    if cfg.loss_chunk or lay.mesh is not None:
+        loss, aux = _summed_loss(params, tokens, mask, cfg, lay)
+        return loss + aux_weight * aux
 
     logits, aux = forward_with_aux(params, tokens, cfg)
     losses = F.cross_entropy(logits[:, :-1].flatten(0, 1),
@@ -520,6 +658,45 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
         m = mask[:, 1:].float()
         return (losses * m).sum() / m.sum().clamp_min(1.0) + aux_weight * aux
     return losses.mean() + aux_weight * aux
+
+
+def _summed_loss(params: Params, tokens: torch.Tensor,
+                 mask: Optional[torch.Tensor], cfg: TransformerConfig,
+                 lay: _Layout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`lm_loss`'s cross entropy as a sum over positions → (loss, mean
+    router aux).  Each rank sums over its block of positions of ``lay``
+    (targets from the whole rows), ``cfg.loss_chunk`` positions at a time
+    (all at once when 0); under a mesh the sums and the count of valid
+    targets add up over the ranks that hold different data, so every rank
+    returns the global batch's loss."""
+    b, s = tokens.shape
+    lo, hi = lay.seq_block(s)
+    x, aux = _trunk(params, tokens, cfg, lay)
+    # fp32 accumulation of cfg.dtype operands, as forward_with_aux
+    w32 = _unembed(params, cfg).float()
+    # the LAST position's target is a dummy 0 with weight 0
+    zero = torch.zeros((b, 1), dtype=tokens.dtype, device=tokens.device)
+    targets = torch.cat([tokens[:, 1:], zero], dim=1)[:, lo:hi].long()
+    valid = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    valid[:, -1] = 0.0
+    if mask is not None:
+        valid[:, :-1] *= mask[:, 1:].float()
+    valid = valid[:, lo:hi]
+    chunk = cfg.loss_chunk or (hi - lo)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, hi - lo, chunk):
+        part = (x[:, i:i + chunk], w32, targets[:, i:i + chunk],
+                valid[:, i:i + chunk])
+        if cfg.loss_chunk and torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_loss_sum, *part,
+                                       use_reentrant=False)
+        else:
+            total = total + _chunk_loss_sum(*part)
+    count = valid.sum()
+    if lay.summed_axes:
+        total = psum(total, lay.summed_axes, lay.mesh)
+        count = psum(count, lay.summed_axes, lay.mesh)
+    return total / count.clamp_min(1.0), aux
 
 
 def param_leaves(params: Params) -> List[torch.Tensor]:
@@ -562,18 +739,43 @@ def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer,
     valid target tokens, so the step equals the full-batch one even when a
     mask is uneven across microbatches; the weighted sum is taken in fp32
     and cast back to each parameter's dtype.
+
+    Under a mesh (`parallel.use_mesh`) every rank calls the step with the
+    whole batch (or a DTensor placed by `parallel.batch_sharding`) and
+    takes its rows (``dp`` × ``fsdp``).  Parameters may be DTensors
+    (`parallel.shard_pytree`): each is gathered for the products and its
+    gradient comes back in its own placement, summed over the ranks that
+    hold different data; a plain parameter's gradient is summed the same
+    way.  With ``pp_stages > 1`` a layer weight placed on ``pp`` (the
+    rules' ``layers="pp"``) is gathered over the other axes only: each
+    stage holds and updates its own slab of the stack.  The optimizer is
+    built over `local_leaves(params)` (the same as `param_leaves` where no
+    parameter is a DTensor) and steps on the local shards; no DTensor
+    arithmetic runs.  The metrics are the global batch's, on every rank.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps={accum_steps}: must be >= 1")
 
     def grads_of(params, leaves, batch):
+        lay = _layout(cfg)
+        # under a mesh each weight is gathered for the products, and its
+        # gradient lands in its placement; a weight placed on pp stays so
+        # where the model pipelines: each stage computes with its own slab
+        use = None if lay.mesh is None else functools.partial(
+            gather_for_compute, mesh=lay.mesh, summed_axes=lay.summed_axes,
+            keep=("pp",) if cfg.pp_stages > 1 else ())
         loss, _, grads = _loss_and_grads(
-            lambda p: (lm_loss(p, batch, cfg), {}), params, leaves)
+            lambda p: (lm_loss(p, batch, cfg), {}), params, leaves, use)
         return loss, grads
 
     def step(params: Params, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
-        leaves = _owned_leaves(optimizer, params)
+        targets = _owned_leaves(optimizer, params)
+        leaves = param_leaves(params)
+        mesh = current_mesh()
+        if mesh is not None:
+            batch = {key: batch_rows(val, mesh, BATCH_AXES)
+                     for key, val in batch.items()}
         if accum_steps > 1:
             full = batch["tokens"].shape[0]
             if full % accum_steps:
@@ -581,7 +783,8 @@ def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer,
                                  f"accum_steps {accum_steps}")
             micro = full // accum_steps
             f32 = dict(dtype=torch.float32, device=leaves[0].device)
-            gsum = [torch.zeros(p.shape, **f32) for p in leaves]
+            gsum = [torch.zeros_like(p, dtype=torch.float32)
+                    for p in targets]
             lsum = torch.zeros((), **f32)
             csum = torch.zeros((), **f32)
             for i in range(accum_steps):
@@ -590,50 +793,97 @@ def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer,
                 mb = {key: val[i * micro:(i + 1) * micro]
                       for key, val in batch.items()}
                 loss, grads = grads_of(params, leaves, mb)
+                grads = [_local(g) for g in grads]
                 if "mask" in mb:
                     count = mb["mask"][:, 1:].float().sum()
                 else:
                     count = torch.tensor(
                         float(micro * (mb["tokens"].shape[1] - 1)), **f32)
+                if mesh is not None:
+                    count = psum(count, _layout(cfg).batch_axes, mesh)
                 for acc, g in zip(gsum, grads):
                     acc.add_(g.float() * count)
                 lsum = lsum + loss * count
                 csum = csum + count
             csum = csum.clamp_min(1.0)
-            grads = [(acc / csum).to(p.dtype) for acc, p in zip(gsum, leaves)]
+            grads = [(acc / csum).to(p.dtype)
+                     for acc, p in zip(gsum, targets)]
             loss = lsum / csum
         else:
             loss, grads = grads_of(params, leaves, batch)
-        grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        _apply_grads(optimizer, leaves, grads)
+            grads = [_local(g) for g in grads]
+        grad_norm = torch.sqrt(_square_sum(grads, leaves))
+        _apply_grads(optimizer, targets, grads)
         return {"loss": loss, "grad_norm": grad_norm}
 
     return step
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself, not a copy); a plain
+    tensor as it is."""
+    if isinstance(x, DTensor):
+        with torch.no_grad():
+            return x.to_local()
+    return x
+
+
+def local_leaves(params: Params) -> List[torch.Tensor]:
+    """`param_leaves` with each DTensor replaced by its local shard: the
+    tensors to build `make_train_step`'s optimizer over."""
+    return [_local(p) for p in param_leaves(params)]
+
+
+def _square_sum(grads: List[torch.Tensor],
+                leaves: List[torch.Tensor]) -> torch.Tensor:
+    """Σ g² over every gradient, fp32, from the local shards ``grads`` of
+    ``leaves``: where a leaf is placed on a mesh, each shard's sum counts
+    once however many ranks replicate it (one all-reduce for them all)."""
+    sums = [g.float().square().sum() for g in grads]
+    mesh = next((p.device_mesh for p in leaves if isinstance(p, DTensor)),
+                None)
+    if mesh is None:
+        return sum(sums)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    world = math.prod(sizes.values())
+    total = sum(s / (math.prod(n for n, pl in zip(sizes.values(),
+                                                  p.placements)
+                               if pl.is_replicate())
+                     if isinstance(p, DTensor) else world)
+                for s, p in zip(sums, leaves))
+    if world > 1:
+        torch.distributed.all_reduce(total)      # the mesh spans the group
+    return total
+
+
 def _owned_leaves(optimizer: torch.optim.Optimizer,
                  params: Params) -> List[torch.Tensor]:
-    """``param_leaves(params)``, after checking that ``optimizer`` was built
-    over exactly those tensors."""
-    leaves = param_leaves(params)
+    """`local_leaves(params)` (``param_leaves`` where no parameter is a
+    DTensor), after checking that ``optimizer`` was built over exactly
+    those tensors."""
+    leaves = local_leaves(params)
     owned = {id(p) for group in optimizer.param_groups
              for p in group["params"]}
     if owned != {id(p) for p in leaves}:
         raise ValueError("the optimizer must be built over "
-                         "param_leaves(params)")
+                         "local_leaves(params) (param_leaves(params) where "
+                         "no parameter is a DTensor)")
     return leaves
 
 
 def _loss_and_grads(loss_fn: Callable, params: Params,
-                    leaves: List[torch.Tensor]):
+                    leaves: List[torch.Tensor],
+                    use: Optional[Callable] = None):
     """``loss_fn(params) -> (loss, {name: metric})`` and the loss's
     gradients with respect to ``leaves`` (``param_leaves(params)``), taken
     through aliases of the parameters so the caller's tensors keep
-    ``requires_grad`` as they were.  → (loss, metrics, grads), the loss and
-    metrics detached."""
+    ``requires_grad`` as they were; ``use`` maps each alias to what the
+    loss computes with.  → (loss, metrics, grads), the loss and metrics
+    detached."""
     alias = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss, metrics = loss_fn(_with_leaves(params, alias))
+        used = alias if use is None else [use(a) for a in alias]
+        loss, metrics = loss_fn(_with_leaves(params, used))
         grads = torch.autograd.grad(loss, alias)
     return (loss.detach(), {key: val.detach() for key, val in metrics.items()},
             grads)

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from ..device import DeviceLike, resolve_device
 from .transformer import (Params, TransformerConfig, _apply_grads, _layers,
                           _loss_and_grads, _norm, _owned_leaves, init_params,
-                          param_shapes)
+                          param_shapes, params_axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +87,17 @@ def vit_param_shapes(cfg: ViTConfig) -> Params:
             "patch": {"w": (patch_dim, d), "b": (d,)},
             "cls": (1, 1, d), "pos": (cfg.seq_len, d),
             "head": {"w": (d, cfg.num_classes), "b": (cfg.num_classes,)}}
+
+
+def vit_params_axes(cfg: ViTConfig) -> Params:
+    """The logical axes of every parameter (the JAX `init_vit_params`'
+    second tree): what `parallel.shard_pytree` places them by."""
+    base = params_axes(cfg.block_cfg())
+    return {"layers": base["layers"], "final_norm": base["final_norm"],
+            "final_norm_b": base["final_norm_b"],
+            "patch": {"w": (None, "embed"), "b": ("embed",)},
+            "cls": (None, None, "embed"), "pos": (None, "embed"),
+            "head": {"w": ("embed", "vocab"), "b": ("vocab",)}}
 
 
 def init_vit_params(cfg: ViTConfig, generator: torch.Generator,

@@ -5,6 +5,11 @@ the query heads (GQA).  `multi_head_attention` picks the implementation:
 
   * ``"flash"``     — `flash_attention` (the Hopper kernel on CUDA tensors)
   * ``"reference"`` — plain softmax(QKᵀ)V in fp32
+  * ``"ring"``      — sequence-parallel ring attention
+    (`ray_tpu_torch.ops.ring_attention`) over the ``sp`` axis of ``mesh``
+    (default: the ambient mesh), on each rank's LOCAL blocks of the
+    sequence; reference attention where the mesh has no ``sp`` axis wider
+    than 1
   * ``"auto"``      — flash for a CUDA tensor whose head_dim and dtype the
     kernel takes, reference otherwise (CPU tensors: what JAX itself runs on
     the CPU)
@@ -15,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from .flash_attention import DTYPES, HEAD_DIMS, flash_attention
 
@@ -54,7 +60,8 @@ def _flash_ok(q: torch.Tensor) -> bool:
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True,
                          sm_scale: Optional[float] = None,
-                         impl: str = "auto") -> torch.Tensor:
+                         impl: str = "auto",
+                         mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     if impl == "auto":
         impl = "flash" if _flash_ok(q) else "reference"
     if impl == "flash":
@@ -63,8 +70,14 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl == "reference":
         return reference_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     if impl == "ring":
-        raise NotImplementedError(
-            "ring attention is not ported yet: it comes with the "
-            "parallelism slice (ROADMAP queue 1 item 8, "
-            "ray_tpu/ops/ring_attention.py)")
+        from ..parallel.mesh import axis_size, current_mesh
+        from .ring_attention import ring_attention_shard
+        mesh = mesh if mesh is not None else current_mesh()
+        sp = axis_size("sp", mesh)
+        if sp <= 1:
+            return reference_attention(q, k, v, causal=causal,
+                                       sm_scale=sm_scale)
+        return ring_attention_shard(q, k, v, axis_name="sp", axis_size=sp,
+                                    causal=causal, sm_scale=sm_scale,
+                                    mesh=mesh)
     raise ValueError(f"unknown attention impl {impl!r}")

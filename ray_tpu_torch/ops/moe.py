@@ -24,15 +24,20 @@ Where a plain PyTorch translation would part from the JAX function:
 * ``jax.lax.top_k`` breaks ties toward the lower index; `torch.topk`
   promises no order.  The top k come from a stable descending sort.
 
-The JAX function's ``constrain`` hook (sharding constraints on the
-expert-major intermediates under a mesh) is left out: expert parallelism
-is not ported.
+``constrain(x, logical_axes)``, as in the JAX package, is an optional
+hook applied to the two expert-major intermediates with ("expert",
+"batch", None, None) (`parallel.constrain` redistributes a DTensor there).
+``batch_mean`` is the port's own: how the router statistics of the aux
+loss are averaged over the batch and the sequence.  By default it is the
+local mean; a data-parallel caller passes one that averages over every
+rank's rows, so the aux loss is the global batch's, as JAX computes it on
+the whole array.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,13 +76,19 @@ def _gates(y: torch.Tensor, router_w: torch.Tensor, top_k: int):
     return gates, gate_k, idx_k
 
 
+def _local_mean(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=(0, 1))
+
+
 def route(y: torch.Tensor, router_w: torch.Tensor, top_k: int,
-          capacity: int):
+          capacity: int, batch_mean: Optional[Callable] = None):
     """Dispatch and combine tensors.
 
     y [b, s, d] activations; router_w [d, E].  → (dispatch [b,s,E,C] 0/1
     in y's dtype, combine [b,s,E,C] fp32, aux loss: the Switch
-    load-balancing loss, an fp32 scalar)."""
+    load-balancing loss, an fp32 scalar).  ``batch_mean`` averages a
+    [b, s, E] statistic over the batch and sequence (None: the local
+    mean)."""
     b, s, _ = y.shape
     n_experts = router_w.shape[-1]
     gates, gate_k, idx_k = _gates(y, router_w, top_k)
@@ -93,14 +104,16 @@ def route(y: torch.Tensor, router_w: torch.Tensor, top_k: int,
     # E * sum_e f_e * p_e: f_e the share of tokens whose first choice is e,
     # p_e the mean gate of e
     top1 = _one_hot(idx_k[..., 0], n_experts)
-    aux = n_experts * torch.mean(top1.mean(dim=(0, 1))
-                                 * gates.mean(dim=(0, 1)))
+    mean = batch_mean or _local_mean
+    aux = n_experts * torch.mean(mean(top1) * mean(gates))
     return dispatch, combine, aux
 
 
 def moe_ffn(y: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
             w_out: torch.Tensor, w_gate: Optional[torch.Tensor] = None, *,
-            top_k: int = 2, capacity_factor: float = 2.0
+            top_k: int = 2, capacity_factor: float = 2.0,
+            constrain: Optional[Callable] = None,
+            batch_mean: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward block.
 
@@ -112,8 +125,11 @@ def moe_ffn(y: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
     n_experts = w_in.shape[0]
     dt = y.dtype
     cap = expert_capacity(s, n_experts, top_k, capacity_factor)
-    dispatch, combine, aux = route(y, router_w, top_k, cap)
+    dispatch, combine, aux = route(y, router_w, top_k, cap, batch_mean)
+    # token-major → expert-major [E, b, C, d]
     xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(dt), y)
+    if constrain is not None:
+        xe = constrain(xe, ("expert", "batch", None, None))
     up = torch.einsum("ebcd,edf->ebcf", xe, w_in.to(dt))
     if w_gate is not None:
         gate = torch.einsum("ebcd,edf->ebcf", xe, w_gate.to(dt))
@@ -121,6 +137,8 @@ def moe_ffn(y: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
     else:
         z = F.gelu(up, approximate="tanh")
     oe = torch.einsum("ebcf,efd->ebcd", z, w_out.to(dt))
+    if constrain is not None:
+        oe = constrain(oe, ("expert", "batch", None, None))
     out = torch.einsum("ebcd,bsec->bsd", oe, combine.to(dt))
     return out, aux
 

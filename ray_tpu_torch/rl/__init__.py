@@ -1,6 +1,7 @@
 """Reinforcement learning of the port (counterpart of ``ray_tpu.rl``): the
 batched envs, the MLP / LSTM / conv actor-critic policies, connectors, the
-model catalog, the PPO family (PPO, A2C, PG), exploration, the replay
+model catalog, the PPO family (PPO, A2C, PG; DD-PPO over a process
+group's ranks), exploration, the replay
 buffer on the card (`replay`, `learner`), the off-policy algorithms
 (DQN, SimpleQ, Rainbow, R2D2, TD3, DDPG, SAC), IMPALA and APPO (inline),
 multi-agent RL (IndependentPPO, QMIX, MADDPG), offline RL (BC, MARWIL,
@@ -35,6 +36,7 @@ from .connectors import (  # noqa: F401
     ObsNormalizer,
     UnsquashActions,
 )
+from .ddppo import DDPPO, DDPPOConfig  # noqa: F401
 from .dqn import (  # noqa: F401
     DQN,
     DQNConfig,

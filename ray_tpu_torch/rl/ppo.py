@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from .algorithm import Algorithm
@@ -360,10 +361,24 @@ def _ppo_loss(cfg, logp, entropy, value, batch):
     return total, {"pi_loss": pi_loss, "vf_loss": vf_loss, "entropy": ent}
 
 
-def _sgd_step(optimizer: ClippedAdam, params, opt_state, loss_fn, *args):
-    """One minibatch: the loss's gradients, then the optimizer's step on
-    ``params`` in place.  → the loss's parts, detached."""
+def pmean(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """``jax.lax.pmean`` over a process group: each tensor averaged over
+    the group's ranks, in one all-reduce of their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    return [part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def _sgd_step(optimizer: ClippedAdam, params, opt_state, loss_fn, *args,
+              group=None):
+    """One minibatch: the loss's gradients (averaged over ``group``'s ranks
+    when given), then the optimizer's step on ``params`` in place.  → the
+    loss's parts, detached."""
     _, aux, grads = value_and_grad(loss_fn, params, *args)
+    if group is not None:
+        grads = pmean(grads, group)
     optimizer.update(grads, opt_state, params)
     return aux
 
@@ -374,12 +389,17 @@ def _perm(perms, epoch: int, n: int, gen: torch.Generator) -> torch.Tensor:
     return torch.randperm(n, generator=gen, device=gen.device)
 
 
-def make_update_fn(policy, optimizer: ClippedAdam, cfg, batch_size: int):
+def make_update_fn(policy, optimizer: ClippedAdam, cfg, batch_size: int,
+                   group=None):
     """Epoch / minibatch clipped-surrogate SGD: ``(params, opt_state, flat,
     gen, perms=None) -> (params, opt_state, metrics)``, params and
     optimizer state updated in place.  Each epoch shuffles the batch with a
     permutation from ``gen``, or ``perms[epoch]`` when given; the metrics
-    are the last minibatch's loss parts (tensors, not yet read)."""
+    are the last minibatch's loss parts (tensors, not yet read).
+
+    With a process ``group`` the gradients are averaged over its ranks
+    before every apply (the JAX package's ``axis_name`` pmean): the DD-PPO
+    learner, each rank on its own batch with the same params."""
     mb_size = batch_size // cfg.num_minibatches
 
     def loss_fn(params, batch):
@@ -395,7 +415,8 @@ def make_update_fn(policy, optimizer: ClippedAdam, cfg, batch_size: int):
                 cfg.num_minibatches, mb_size)
             for idx in idxs:
                 mb = {k: v[idx] for k, v in flat.items()}
-                aux = _sgd_step(optimizer, params, opt_state, loss_fn, mb)
+                aux = _sgd_step(optimizer, params, opt_state, loss_fn, mb,
+                                group=group)
         return params, opt_state, aux
 
     return update

@@ -1,0 +1,228 @@
+"""The multi-rank checks of `torch_rank_checks.py` with each rank's tensors
+on its own card and the collectives over NCCL, held without JAX: each
+sharded run against the same computation unsharded.
+
+    python tests/cuda_rank_checks.py [--device cuda|cpu] [--out DIR]
+
+needs four cards (``--device cpu`` runs the same four ranks on gloo with
+CPU tensors, to rehearse where there is no card).  The meshes: sp=4
+(ring and Ulysses attention against reference attention on the whole
+tensors; Ulysses runs the flash kernels on the cards), sp=2 x fsdp=2 (the
+ring model's train step with FSDP_TP_RULES DTensors, and its remat
+backward outside the mesh block), pp=2 x fsdp=2 (the pipelined step with
+layers="pp", and a placed stack's slabs), fsdp=2 x ep=2 (the MoE step) and
+dp=4 (DD-PPO, whose learners must end an iteration with the same
+weights).  A train step is held against the plain step on one rank, at
+the CPU tests' bounds.  Prints a line a check, then one JSON object;
+exits 1 where a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from torch_rank_checks import REPO, run_ranks
+
+sys.path.insert(0, str(REPO))           # the port, run from any directory
+
+WORLD = 4
+OUT_TOL = dict(atol=2e-5, rtol=2e-4)     # tests/test_ring_attention.py's
+GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
+TOL = 1e-5                               # the CPU tests' step bound
+MODEL = dict(attention_impl="ring", max_seq_len=64)
+MOE_MODEL = dict(MODEL, n_experts=4, expert_top_k=2)
+DENSE = dict(max_seq_len=32, attention_impl="reference")
+PIPE = dict(DENSE, pp_stages=2, pp_microbatches=2)
+MOE = dict(DENSE, n_experts=4, expert_top_k=2)
+DDPPO = dict(num_envs=8, rollout_length=8, num_sgd_epochs=2,
+             num_minibatches=2, lr=3e-3, seed=0, hidden=(8,))
+# name, kind, causal, gradients, (b, s, h, hkv, d); Ulysses at head dim
+# 64 so its local attention is the flash kernels' on a card
+CASES = [("ring_causal", "ring", True, True, (2, 64, 4, 2, 16)),
+         ("ring_noncausal", "ring", False, True, (2, 64, 4, 4, 16)),
+         ("ulysses", "ulysses", True, True, (1, 128, 8, 8, 64))]
+
+
+def _weights(kw):
+    """The tiny fp32 model's weights from a seed, as numpy."""
+    from ray_tpu_torch.models import TransformerConfig, init_params
+    cfg = TransformerConfig.tiny(dtype=torch.float32, **kw)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else v.numpy()
+                for k, v in node.items()}
+    return walk(params)
+
+
+def _qkv(seed, b, s, h, hkv, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=shape).astype(np.float32)
+                 for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+
+
+def _norm_err(got, want):
+    return max(float(np.linalg.norm(np.asarray(g) - np.asarray(w))
+                     / max(np.linalg.norm(np.asarray(w)), 1e-30))
+               for g, w in zip(got, want))
+
+
+def _close(got, want, atol, rtol):
+    """max |got - want| and whether it is within atol + rtol |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    return float(diff.max()), bool((diff <= atol + rtol * np.abs(want)).all())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [np.asarray(tree)]
+
+
+def checks():
+    tokens64 = np.random.default_rng(1).integers(0, 256, (2, 64),
+                                                 dtype=np.int32)
+    tokens32 = np.random.default_rng(1).integers(0, 256, (4, 32),
+                                                 dtype=np.int32)
+    cases = [(name, kind, causal, grads, *_qkv(i, *shape))
+             for i, (name, kind, causal, grads, shape) in enumerate(CASES)]
+    sp2 = dict(sp=2, fsdp=2)
+    step = dict(rules="FSDP_TP_RULES", steps=2, plain=True)
+    slab_w = (np.random.default_rng(2).normal(size=(4, 8, 8)) * 0.4
+              ).astype(np.float32)
+    slab_x = np.random.default_rng(3).normal(size=(2, 3, 8)).astype(
+        np.float32)
+    return [
+        ("attention", dict(spec=dict(sp=WORLD, fsdp=1), cases=cases)),
+        ("launches", {}),
+        ("train:ring", dict(step, cfg_kw=MODEL, params=_weights(MODEL),
+                            tokens=tokens64, spec=sp2)),
+        ("backward_outside", dict(cfg_kw=MOE_MODEL,
+                                  params=_weights(MOE_MODEL),
+                                  tokens=tokens64, spec=sp2)),
+        ("train:pipe", dict(step, cfg_kw=PIPE, params=_weights(PIPE),
+                            tokens=tokens32, spec=dict(fsdp=2, pp=2),
+                            overrides={"layers": "pp"})),
+        ("slab", dict(spec=dict(fsdp=2, pp=2), w=slab_w, x=slab_x)),
+        ("train:moe", dict(step, cfg_kw=MOE, params=_weights(MOE),
+                           tokens=tokens32, spec=dict(fsdp=2, ep=2))),
+        ("ddppo_sync", dict(spec=dict(dp=WORLD, fsdp=1), cfg_kw=DDPPO)),
+    ]
+
+
+def judge(jobs, results, device):
+    """→ {check: {numbers..., "ok": bool}}."""
+    from ray_tpu_torch.ops.attention import reference_attention
+    out = {}
+    for name, kind, causal, grads, q, k, v in jobs["attention"]["cases"]:
+        qkv = [torch.from_numpy(a).double().requires_grad_(True)
+               for a in (q, k, v)]
+        o = reference_attention(*qkv, causal=causal)
+        want = [o.detach().numpy(), *[g.numpy() for g in torch.autograd.grad(
+            (o ** 2).sum(), qkv)]]
+        err, ok = 0.0, True
+        for r in range(WORLD):
+            got = results[r]["attention"][name]
+            e, good = _close(got["out"], want[0], **OUT_TOL)
+            err, ok = max(err, e), ok and good
+            for g, w in zip(got.get("grads", []), want[1:]):
+                e, good = _close(g, w, **GRAD_TOL)
+                err, ok = max(err, e), ok and good
+        out[f"attention:{name}"] = {"max_abs_err": err, "ok": ok}
+    launches = [results[r]["launches"] for r in range(WORLD)]
+    out["ulysses_flash_launches"] = {
+        "per_rank": launches,
+        "ok": all(set(n.values()) == ({0} if device == "cpu" else {1})
+                  for n in launches)}
+    for which in ("train:ring", "train:pipe", "train:moe"):
+        worst = {"loss": 0.0, "grads": 0.0, "losses": 0.0}
+        for r in range(WORLD):
+            mesh, plain = (results[r][which][side]
+                           for side in ("mesh", "plain"))
+            worst["loss"] = max(worst["loss"], abs(
+                mesh["loss"] - plain["loss"]) / abs(plain["loss"]))
+            worst["grads"] = max(worst["grads"],
+                                 _norm_err(mesh["grads"], plain["grads"]))
+            worst["losses"] = max(worst["losses"], float(np.max(
+                np.abs(np.subtract(mesh["losses"], plain["losses"]))
+                / np.abs(plain["losses"]))))
+        out[which] = {**worst, "ok": all(x <= TOL for x in worst.values())}
+    same = all(
+        np.array_equal(g, w)
+        for r in range(WORLD)
+        for g, w in zip(results[r]["backward_outside"]["outside"]["grads"],
+                        results[r]["backward_outside"]["inside"]["grads"]))
+    out["backward_outside"] = {"bitwise": same, "ok": same}
+    w, y = jobs["slab"]["w"], jobs["slab"]["x"]
+    for wl in w:
+        y = np.tanh(y @ wl)
+    per = (w.shape[0] // 2,) + w.shape[1:]
+    err, ok = 0.0, True
+    for r in range(WORLD):
+        got = results[r]["slab"]
+        ok = ok and tuple(got["placed"]["held"]) == per and tuple(
+            got["whole"]["held"]) == w.shape
+        for how in ("placed", "whole"):
+            e, good = _close(got[how]["y"], y, TOL, TOL)
+            err, ok = max(err, e), ok and good
+        e, good = _close(got["placed"]["grad"], got["whole"]["grad"], TOL,
+                         TOL)
+        err, ok = max(err, e), ok and good
+    out["slab"] = {"held": per, "max_abs_err": err, "ok": ok}
+    runs = [results[r]["ddppo_sync"] for r in range(WORLD)]
+    first = _leaves(runs[0]["params"])
+    same = all(all(np.array_equal(a, b) for a, b in zip(
+        _leaves(run["params"]), first)) for run in runs)
+    moved = not all(np.array_equal(a, b) for a, b in zip(
+        _leaves(runs[0]["before"]), first))
+    learners = sorted(run["learner"] for run in runs)
+    sums = {float(run["reward_sum"]) for run in runs}
+    out["ddppo_sync"] = {
+        "learners": learners, "weights_equal": same, "moved": moved,
+        "reward_sum": sorted(sums),
+        "ok": same and moved and learners == list(range(WORLD))
+        and len(sums) == 1 and all(np.isfinite(a).all() for a in first)}
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default=str(REPO / "build" / "rank_checks"),
+                    help="the ranks' store and results (scratch)")
+    args = ap.parse_args()
+    if args.device == "cuda":
+        if torch.cuda.device_count() < WORLD:
+            print(f"needs {WORLD} cards, found {torch.cuda.device_count()}",
+                  file=sys.stderr)
+            sys.exit(1)
+        from ray_tpu_torch.kernels import build
+        for built in build.build_all():      # once, before the ranks load
+            print(f"built {built.name} in {built.seconds:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    jobs = checks()
+    results = run_ranks(Path(args.out), WORLD, jobs, timeout=600.0,
+                        device=args.device)
+    seconds = time.perf_counter() - t0
+    verdict = judge(dict(jobs), results, args.device)
+    for name, res in verdict.items():
+        print(f"{'ok  ' if res['ok'] else 'FAIL'} {name}: {res}", flush=True)
+    ok = all(res["ok"] for res in verdict.values())
+    print(json.dumps({"cuda_rank_checks": verdict, "device": args.device,
+                      "world": WORLD, "seconds": seconds, "ok": ok},
+                     default=str))
+    sys.exit(0 if ok else 1)
+
+
+if __name__ == "__main__":
+    main()

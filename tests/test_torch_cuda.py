@@ -828,3 +828,26 @@ def test_rl_rest_card_matches_the_cpu(cuda, check):
         else:
             out = getattr(chip_smoke, check)(name)
     assert out["max_err"]
+
+
+def test_sequence_parallel_attention_on_the_card(cuda):
+    """Ulysses and the ring shard function at sp=1 on a one-rank NCCL mesh,
+    at the llama-1b train attention shape, against reference attention
+    forward and backward (chip_smoke.py's parallel phase, items 2-3):
+    Ulysses launches each flash kernel once a call, the ring none."""
+    import torch.distributed as dist
+
+    chip_smoke = _chip_smoke()
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.parallel import MeshSpec, create_mesh
+
+    mesh = create_mesh(MeshSpec(), device="cuda")
+    try:
+        launches, out = chip_smoke.par_attention(
+            torch.cuda.get_device_name(0), ops, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                        "flash_bwd_dkv": 1}
+    assert set(out["ring"]["launches"].values()) == {0}
+

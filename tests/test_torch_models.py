@@ -185,9 +185,11 @@ def test_init_params_and_unported_paths():
     assert all(torch.equal(x, y) for x, y in
                zip(flat, jax.tree_util.tree_leaves(b)))
     assert torch.all(a["layers"]["attn_norm"] == 1)
-    for kw in (dict(pp_stages=2), dict(attention_impl="ring")):
-        with pytest.raises(NotImplementedError, match="parallelism slice"):
-            ttr.TransformerConfig.tiny(**kw)
+    # the parallel paths build: ring attention and pipeline stages
+    for kw in (dict(pp_stages=2, pp_microbatches=2),
+               dict(attention_impl="ring")):
+        built = ttr.TransformerConfig.tiny(**kw)
+        assert all(getattr(built, k) == v for k, v in kw.items())
 
 
 def test_params_from_numpy_copies_bf16_bits_and_checks_layout():

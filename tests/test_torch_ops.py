@@ -327,9 +327,13 @@ def test_attention_matches_jax(dtype, tol, s_q, s_kv, h, h_kv, causal):
 
 
 def test_attention_dispatch_refuses_ring_and_unknown():
-    q = torch.zeros(1, 4, 2, 64)
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        tops.multi_head_attention(q, q, q, impl="ring")
+    """``impl="ring"`` with no mesh (sp 1) falls back to reference
+    attention, as the JAX dispatch does; an unknown impl is refused."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 4, 2, 64)).astype(
+        np.float32)) for _ in range(3))
+    assert torch.equal(tops.multi_head_attention(q, k, v, impl="ring"),
+                       tops.reference_attention(q, k, v))
     with pytest.raises(ValueError):
         tops.multi_head_attention(q, q, q, impl="nope")
 
@@ -352,7 +356,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "          'rl.r2d2', 'rl.td3', 'rl.sac', 'rl.impala',\n"
         "          'rl.multi_agent', 'rl.qmix', 'rl.maddpg', 'rl.offline',\n"
         "          'rl.bandit', 'rl.es', 'rl.maml', 'rl.dreamer', 'rl.dt',\n"
-        "          'rl.alpha_zero', 'rl.slateq'):\n"
+        "          'rl.alpha_zero', 'rl.slateq', 'rl.ddppo',\n"
+        "          'parallel.mesh', 'parallel.sharding',\n"
+        "          'parallel.collectives', 'parallel.pipeline',\n"
+        "          'parallel.coordinator', 'ops.ring_attention'):\n"
         "    assert 'ray_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -105,6 +105,20 @@ def test_chunked_prefill_core_matches_jax(prompt_len, chunk):
 
 @pytest.mark.parametrize("option", [dict(pp_stages=2)])
 def test_unported_options_raise(option):
-    """Options of a later slice still refuse to run."""
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        TConfig.tiny(dtype=torch.float32, **option)
+    """Generation refuses a pipelined config, as the JAX package's
+    ``_check_decodable`` does, with its message."""
+    import importlib
+    # the packages' attribute ``generate`` is the function: import modules
+    jgen = importlib.import_module("ray_tpu.models.generate")
+    tgen = importlib.import_module("ray_tpu_torch.models.generate")
+    tcfg = TConfig.tiny(dtype=torch.float32, **option)
+    jcfg = JConfig.tiny(dtype=jnp.float32, **option)
+    with pytest.raises(NotImplementedError) as want:
+        jgen._check_decodable(jcfg)
+    cache = tgen.init_kv_cache(tcfg, 1, 8, "cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError) as got:
+        tgen.prefill({}, tokens, tcfg, cache)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="pipeline mesh"):
+        tgen.decode_step({}, tokens[:, :1], cache, tcfg)
