@@ -158,6 +158,23 @@ runs these phases, each fatal on failure:
                RecSlateEnv at their configs' defaults, measured as in
                rl_breadth (AlphaZero profiled by move); 0 flash launches
                but for DT at the paper's width.
+ 13. parallel — a one-rank NCCL mesh: Ulysses and the ring at the llama-1b
+               train attention shape against reference attention, the
+               llama-1b step with FSDP_TP_RULES DTensors bitwise the plain
+               step's first loss and grad norm, DD-PPO card = CPU and at its
+               defaults.
+ 14. train_gang — the Train gang on the port's actor layer: llama-1b at the
+               train phase's settings through TorchTrainer(num_workers=1)
+               with SpmdConfig (a spawned rank, a one-rank NCCL group): its
+               first loss and grad norm bitwise the same steps' in this
+               process, 32/16/16 launches a step counted in the rank, step
+               times both ways, the seconds from fit() to the first report;
+               then side by side a restart (tiny fp32 model, a failure at
+               step 2, FailureConfig(max_failures=1): resumed from the
+               step-1 checkpoint, losses bitwise an uninterrupted run's)
+               and a rank SIGKILLed mid-run (fit returns a
+               TrainingFailedError naming rank 0 and exit code -9 within
+               30 s); no child process left.
 The kernel phases also hold and time each kernel at the MoE train shape,
 the ViT shapes and the DT shapes (fp32, 60 tokens, one head of 128; the
 planted faults there include the causal mask left off and the first key
@@ -166,7 +183,8 @@ long fp32 shape (b 1, s 1024, 32/8 heads, d 64).  Each phase prints its
 seconds.  Then one JSON line of the engine's numbers, one of the moe and
 vit phases' (with the phase seconds), one of the rl phase's, one of the
 offpolicy phase's, one of the rl_breadth phase's, one of the rl_rest
-phase's, one of the kernels, and last the device line.  Exits non-zero
+phase's, one of the parallel phase's, one of the train_gang phase's, one
+of the kernels, and last the device line.  Exits non-zero
 without a result when no CUDA device is present.
 """
 
@@ -313,6 +331,19 @@ RL_TIE = 1e-5
 PAR_ATTENTION = (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 64)
 PAR_TRAIN_STEPS = 5
 PAR_DDPPO_PARITY = dict(num_envs=16, rollout_length=16, seed=0)
+# the train_gang phase: llama-1b steps through TorchTrainer (the train
+# phase's settings), the tiny fp32 model of tests/test_train.py:47-76 for
+# the restart (a failure at step 2 of 4) and the killed rank, the bound on
+# noticing that kill, and where the gang's checkpoints go (removed after)
+GANG_STEPS = 4
+GANG_LLAMA = dict(max_seq_len=TRAIN_SEQ, remat="dots", norm_remat=True,
+                  loss_chunk=128, param_dtype=torch.bfloat16)
+GANG_TINY = dict(n_layers=1, d_model=32, n_heads=2, n_kv_heads=2,
+                 max_seq_len=32, dtype=torch.float32)
+GANG_TINY_STEPS, GANG_FAIL_AT = 4, 2
+GANG_KILL_BOUND_S = 30.0
+GANG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_gang")
 # the offpolicy phase: double DQN on CartPole at the JAX package's DQN row
 # (tpu_probe2.py:107-111, stage rl_dqn_tpu) and Rainbow at its sizes; PG on
 # CartPole at the PPO CartPole row's 128 x 128 (tpu_probe.py:219-220) with
@@ -3868,6 +3899,338 @@ def phase_parallel(card, ops):
                       "train": train, "ddppo": ddppo}
 
 
+# -- train_gang: the Train gang on the port's actor layer -------------------
+# The rank functions below run in the gang's spawned processes, which find
+# them by reference in this module.
+
+
+def gang_model(preset, cfg_kw):
+    from ray_tpu_torch.models import TransformerConfig
+    if preset == "llama-1b":
+        return TransformerConfig.llama("1b", **cfg_kw)
+    return TransformerConfig.tiny(**cfg_kw)
+
+
+def gang_llama_state(preset, cfg_kw, tokens, device):
+    """The train phase's model, AdamW and batch: weights from the seed-0
+    generator on ``device``."""
+    from ray_tpu_torch.models import init_params, param_leaves
+    cfg = gang_model(preset, cfg_kw)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    opt = torch.optim.AdamW(param_leaves(params), lr=3e-4, weight_decay=0.1)
+    return cfg, params, opt, {"tokens": torch.from_numpy(tokens).to(device)}
+
+
+def gang_llama_loop(config):
+    """A rank of train_gang (a): ``config["steps"]`` train steps under the
+    gang's mesh, reporting each step's loss, grad norm, wall ms and this
+    rank's own flash launches (its counters set to 0 just before the step
+    and read just after)."""
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import make_train_step
+    from ray_tpu_torch.parallel import use_mesh
+    started = time.time()
+    device = session.get_device()
+    cfg, params, opt, batch = gang_llama_state(
+        config["preset"], config["cfg"], config["tokens"], device)
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    with use_mesh(session.get_mesh()):
+        step = make_train_step(cfg, opt)
+        for i in range(config["steps"]):
+            for kernel in kernels:
+                kernel.launches = 0
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            m = step(params, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])  # syncs
+            ms = (time.perf_counter() - t0) * 1e3
+            session.report({
+                "step": i, "loss": loss, "grad_norm": norm, "step_ms": ms,
+                "launches": {k.__name__: k.launches for k in kernels},
+                "loop_started": started, "reported": time.time()})
+
+
+def gang_llama(card, preset, cfg_kw, tokens, expected):
+    """train_gang (a): GANG_STEPS steps of ``preset`` in this process, then
+    through ``TorchTrainer(num_workers=1)`` with SpmdConfig on the card
+    (the parent's tensors freed before the gang spawns).  The gang's first
+    loss and grad norm must be bitwise the in-process step's and each
+    step's launches, counted in the rank, ``expected``.  → (launches over
+    the gang's steps, results)."""
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.models import make_train_step
+    from ray_tpu_torch.train import SpmdConfig, TorchTrainer
+
+    cfg, params, opt, batch = gang_llama_state(preset, cfg_kw, tokens,
+                                               "cuda")
+    step = make_train_step(cfg, opt)
+    plain, walls = [], []
+    for _ in range(GANG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(params, batch)
+        plain.append((float(m["loss"]), float(m["grad_norm"])))   # syncs
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del cfg, params, opt, batch, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    result = TorchTrainer(
+        gang_llama_loop,
+        train_loop_config={"preset": preset, "cfg": cfg_kw,
+                           "tokens": tokens, "steps": GANG_STEPS},
+        scaling_config=ScalingConfig(num_workers=1),
+        backend_config=SpmdConfig(),
+        run_config=RunConfig(name="llama", storage_path=GANG_DIR)).fit()
+    fit_s = time.time() - t0
+    if result.error is not None:
+        raise AssertionError(f"train_gang: the {preset} run failed") \
+            from result.error
+    hist = result.metrics_history
+    if [h["step"] for h in hist] != list(range(GANG_STEPS)):
+        raise AssertionError(f"train_gang: reports {hist}")
+    first = (hist[0]["loss"], hist[0]["grad_norm"])
+    gang_ms = float(np.median([h["step_ms"] for h in hist[1:]]))
+    plain_ms = float(np.median(walls[1:]))
+    out = {"first_loss": first[0], "first_grad_norm": first[1],
+           "plain_first": list(plain[0]), "losses": [h["loss"] for h in hist],
+           "gang_step_ms": gang_ms, "plain_step_ms": plain_ms,
+           "launches_per_step": [h["launches"] for h in hist],
+           "spawn_to_loop_s": hist[0]["loop_started"] - t0,
+           "spawn_to_first_report_s": hist[0]["reported"] - t0,
+           "fit_s": fit_s}
+    log(f"  {preset} through TorchTrainer(num_workers=1), SpmdConfig: first "
+        f"loss {first[0]!r} grad_norm {first[1]!r} (in-process "
+        f"{plain[0][0]!r} / {plain[0][1]!r}); step {gang_ms:.2f} ms against "
+        f"{plain_ms:.2f} in-process (medians of steps 2-{GANG_STEPS}); "
+        f"launches a step {hist[0]['launches']} (counted in the rank); "
+        f"fit() to the loop {out['spawn_to_loop_s']:.2f} s (spawn, import, "
+        f"rendezvous), to the first report "
+        f"{out['spawn_to_first_report_s']:.2f} s, whole fit {fit_s:.2f} s "
+        f"[{card}]")
+    if first != plain[0]:
+        raise AssertionError("train_gang: the gang's first loss or grad "
+                             "norm is not the in-process step's")
+    if any(h["launches"] != expected for h in hist):
+        raise AssertionError(f"train_gang: launches a step "
+                             f"{[h['launches'] for h in hist]}, expected "
+                             f"{expected}")
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError("train_gang: a loss is not finite")
+    launches = {name: sum(h["launches"][name] for h in hist)
+                for name in expected}
+    return launches, out
+
+
+def gang_tiny_state(tokens, device):
+    """The tiny fp32 model of tests/test_train.py:47-76 on ``device`` with
+    optax.adamw(1e-3)'s hyperparameters: weights from the seed-0
+    generator."""
+    from ray_tpu_torch.models import init_params, param_leaves
+    cfg = gang_model("tiny", GANG_TINY)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    opt = torch.optim.AdamW(param_leaves(params), lr=1e-3, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    return cfg, params, opt, {"tokens": torch.from_numpy(tokens).to(device)}
+
+
+def gang_restart_loop(config):
+    """A rank of train_gang (b): GANG_TINY_STEPS steps, each reported with
+    a checkpoint of the weights and the optimizer state; resumes from the
+    session's checkpoint; rank 0 raises once at step GANG_FAIL_AT (a
+    marker file remembers it did)."""
+    from ray_tpu_torch.air import Checkpoint, session
+    from ray_tpu_torch.models import make_train_step, param_leaves
+    from ray_tpu_torch.rl.policy import tree_map
+    cfg, params, opt, batch = gang_tiny_state(config["tokens"],
+                                              session.get_device())
+    start, ck = 0, session.get_checkpoint()
+    if ck is not None:
+        state = ck.to_dict()
+        with torch.no_grad():
+            for leaf, saved in zip(param_leaves(params), state["params"]):
+                leaf.copy_(saved)
+        opt.load_state_dict(state["opt"])
+        start = state["step"] + 1
+    step = make_train_step(cfg, opt)
+    for i in range(start, GANG_TINY_STEPS):
+        if i == GANG_FAIL_AT and session.get_world_rank() == 0 \
+                and not os.path.exists(config["marker"]):
+            open(config["marker"], "w").close()
+            raise RuntimeError(f"injected failure at step {i}")
+        loss = float(step(params, batch)["loss"])
+        opt_state = tree_map(lambda x: x.cpu() if isinstance(
+            x, torch.Tensor) else x, opt.state_dict())
+        state = {"step": i, "opt": opt_state,
+                 "params": [p.detach().cpu() for p in param_leaves(params)]}
+        session.report({"step": i, "loss": loss, "reported": time.time()},
+                       checkpoint=Checkpoint.from_dict(state))
+
+
+def gang_restart(card, tokens):
+    """train_gang (b): the restart loop through TorchTrainer with
+    FailureConfig(max_failures=1) on the card.  No error in the Result;
+    steps 0, 1, then 2, 3 resumed from the step-1 checkpoint; every loss
+    bitwise an uninterrupted in-process run's (at worst within 1e-6
+    relative, said so)."""
+    from ray_tpu_torch.air import FailureConfig, RunConfig, ScalingConfig
+    from ray_tpu_torch.models import make_train_step
+    from ray_tpu_torch.train import TorchTrainer
+
+    cfg, params, opt, batch = gang_tiny_state(tokens, "cuda")
+    step = make_train_step(cfg, opt)
+    want = [float(step(params, batch)["loss"])
+            for _ in range(GANG_TINY_STEPS)]
+    marker = os.path.join(GANG_DIR, "failed_once")
+    t0 = time.time()
+    result = TorchTrainer(
+        gang_restart_loop,
+        train_loop_config={"tokens": tokens, "marker": marker},
+        scaling_config=ScalingConfig(num_workers=1),
+        run_config=RunConfig(name="restart", storage_path=GANG_DIR,
+                             failure_config=FailureConfig(max_failures=1))
+    ).fit()
+    done = time.time()
+    hist = result.metrics_history
+    got = [h["loss"] for h in hist]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    # from fit() to the first report, from the failed attempt's last
+    # report to the second attempt's first, from the last report to the
+    # return of fit (the gang's teardown)
+    times = {"to_first_report_s": hist[0]["reported"] - t0,
+             "restart_s": hist[GANG_FAIL_AT]["reported"]
+             - hist[GANG_FAIL_AT - 1]["reported"],
+             "teardown_s": done - hist[-1]["reported"], "fit_s": done - t0}
+    log(f"  restart: error {result.error!r}, steps "
+        f"{[h['step'] for h in hist]}, losses {got} against an "
+        f"uninterrupted run's {want} (max relative {rel:.3e}); seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+        + f" [{card}]")
+    if result.error is not None or not os.path.exists(marker):
+        raise AssertionError("train_gang: the restart did not run as "
+                             "planned") from result.error
+    if [h["step"] for h in result.metrics_history] != [0, 1, 2, 3]:
+        raise AssertionError("train_gang: the restart did not resume from "
+                             "the step-1 checkpoint")
+    if got != want:
+        if rel > 1e-6:
+            raise AssertionError("train_gang: the resumed losses differ from "
+                                 "the uninterrupted run's")
+        log("  restart: not bitwise, within 1e-6 relative")
+    return {"losses": got, "uninterrupted": want, "bitwise": got == want,
+            "max_rel": rel, **times}
+
+
+def gang_until_killed(config):
+    """A rank of train_gang (c): tiny steps, each reported; writes its pid
+    to ``config["pid_file"]`` after the first; ends by itself after
+    ``config["steps"]`` steps if nobody kills it."""
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import make_train_step
+    cfg, params, opt, batch = gang_tiny_state(config["tokens"],
+                                              session.get_device())
+    step = make_train_step(cfg, opt)
+    for i in range(config["steps"]):
+        loss = float(step(params, batch)["loss"])
+        session.report({"step": i, "loss": loss})
+        if i == 0:
+            with open(config["pid_file"] + ".tmp", "w") as f:
+                f.write(str(os.getpid()))
+            os.rename(config["pid_file"] + ".tmp", config["pid_file"])
+        time.sleep(0.01)
+
+
+def gang_killed_rank(card, tokens):
+    """train_gang (c): SIGKILL the rank a second after its first report;
+    fit must return a Result whose error is a TrainingFailedError naming
+    rank 0 and exit code -9 within GANG_KILL_BOUND_S."""
+    import signal
+
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.train import TorchTrainer, TrainingFailedError
+
+    pid_file = os.path.join(GANG_DIR, "rank.pid")
+    killed = {}
+
+    def killer():
+        deadline = time.monotonic() + 300
+        while not os.path.exists(pid_file):
+            if time.monotonic() > deadline:
+                return
+            time.sleep(0.05)
+        time.sleep(1.0)
+        with open(pid_file) as f:
+            killed["pid"] = int(f.read())
+        killed["at"] = time.monotonic()
+        os.kill(killed["pid"], signal.SIGKILL)
+
+    thread = threading.Thread(target=killer, daemon=True)
+    thread.start()
+    result = TorchTrainer(
+        gang_until_killed,
+        train_loop_config={"tokens": tokens, "pid_file": pid_file,
+                           "steps": 3000},
+        scaling_config=ScalingConfig(num_workers=1),
+        run_config=RunConfig(name="killed", storage_path=GANG_DIR)).fit()
+    returned = time.monotonic()
+    thread.join(5)
+    if "at" not in killed:
+        raise AssertionError("train_gang: the rank never wrote its pid")
+    after = returned - killed["at"]
+    log(f"  killed rank: SIGKILL to pid {killed['pid']} after "
+        f"{len(result.metrics_history)} reports; fit returned "
+        f"{after:.3f} s later with {result.error!r} [{card}]")
+    want = f"rank 0 (pid {killed['pid']}) died with exit code " \
+        f"{-signal.SIGKILL}"
+    if not (isinstance(result.error, TrainingFailedError)
+            and want in str(result.error)):
+        raise AssertionError(f"train_gang: the killed rank gave "
+                             f"{result.error!r}, not {want!r}")
+    if after > GANG_KILL_BOUND_S:
+        raise AssertionError("train_gang: the kill was noticed late")
+    return {"error": str(result.error), "reports": len(result.metrics_history),
+            "noticed_after_s": after}
+
+
+def phase_train_gang(card, ops):
+    import concurrent.futures
+    import importlib.util
+    import multiprocessing
+    import shutil
+
+    log("== train_gang: llama-1b through TorchTrainer (a one-rank NCCL "
+        "gang); then side by side, each its own gang, a restart from a "
+        "checkpoint and a killed rank; no process left")
+    cloudpickle = importlib.util.find_spec("cloudpickle") is not None
+    log(f"  cloudpickle installed: {cloudpickle}")
+    shutil.rmtree(GANG_DIR, ignore_errors=True)
+    os.makedirs(GANG_DIR)
+    try:
+        cfg = gang_model("llama-1b", GANG_LLAMA)
+        tokens = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+        L = cfg.n_layers
+        launches, llama = gang_llama(
+            card, "llama-1b", GANG_LLAMA, tokens,
+            {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+        tiny = np.random.default_rng(1).integers(0, 256, (2, 32))
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            restart = pool.submit(gang_restart, card, tiny)
+            killed = pool.submit(gang_killed_rank, card, tiny)
+            restart, killed = restart.result(), killed.result()
+    finally:
+        shutil.rmtree(GANG_DIR, ignore_errors=True)
+    left = multiprocessing.active_children()
+    log(f"  processes left: {left}")
+    if left:
+        raise AssertionError("train_gang: a gang left a process")
+    return launches, {"cloudpickle": cloudpickle, "llama": llama,
+                      "restart": restart, "killed_rank": killed}
+
+
 def top_kernels(by_name, n):
     """The ``n`` kernels with the most device time, then the port's own
     (flash_*) kernels that are not among them."""
@@ -4189,6 +4552,8 @@ def main():
     by_path["rl_rest"], rl_rest = timed("rl_rest", phase_rl_rest, card, ops)
     by_path["parallel"], parallel = timed("parallel", phase_parallel, card,
                                           ops)
+    by_path["train_gang"], train_gang = timed("train_gang", phase_train_gang,
+                                              card, ops)
     by_path.update(moe_paths)
     by_path.update(vit_paths)
     log(f"  phase seconds: {json.dumps(seconds)}")
@@ -4207,6 +4572,8 @@ def main():
                       "seconds": seconds["rl_breadth"]}))
     print(json.dumps({"rl_rest": rl_rest, "seconds": seconds["rl_rest"]}))
     print(json.dumps({"parallel": parallel, "seconds": seconds["parallel"]}))
+    print(json.dumps({"train_gang": train_gang,
+                      "seconds": seconds["train_gang"]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,14 @@
 """Shared ML primitives of the port (counterpart of ``ray_tpu.air``): the
-dict-backed checkpoint, the run configuration and the result of a run."""
+dict-backed checkpoint, the run and scaling configuration, the result of a
+run and the in-train-loop session."""
 
 from .checkpoint import Checkpoint  # noqa: F401
-from .config import CheckpointConfig, FailureConfig, RunConfig  # noqa: F401
+from .config import (  # noqa: F401
+    CheckpointConfig,
+    ElasticConfig,
+    FailureConfig,
+    RunConfig,
+    ScalingConfig,
+)
 from .result import Result  # noqa: F401
+from . import session  # noqa: F401

@@ -1,9 +1,10 @@
 """Checkpoint: dict ⇄ directory ⇄ bytes (counterpart of the dict-backed
 half of ``ray_tpu/air/checkpoint.py``).
 
-Dict checkpoints pickle.  The sharded save of a tree of tensors (the JAX
-package's ``from_pytree`` / ``to_pytree``) comes with the distributed
-training pieces.
+Dict checkpoints pickle; a fitted preprocessor rides along
+(`with_preprocessor`).  The sharded save of a tree of tensors (the JAX
+package's ``from_pytree`` / ``to_pytree``) comes with the next slice of the
+distributed training pieces.
 """
 
 from __future__ import annotations
@@ -96,6 +97,52 @@ class Checkpoint:
         with tarfile.open(fileobj=buf, mode="w") as tf:
             tf.add(self._path, arcname=".")
         return pickle.dumps({"__ckpt_kind__": "tar", "tar": buf.getvalue()})
+
+    # -- preprocessor attachment --------------------------------------------
+    _PREPROCESSOR_KEY = "_preprocessor"
+    _PREPROCESSOR_FILE = "preprocessor.pkl"
+
+    def with_preprocessor(self, preprocessor: Any) -> "Checkpoint":
+        """Attach a fitted preprocessor (the trainer attaches its own to
+        every checkpoint it registers, so inference applies the same
+        transforms).  Dict checkpoints return a NEW checkpoint; directory
+        checkpoints attach IN PLACE (a ``preprocessor.pkl`` sidecar next to
+        the payload) and return self.  The preprocessor pickles by
+        reference, by value through cloudpickle where it must
+        (`core.actors.dumps_function`)."""
+        from ..core.actors import dumps_function
+        blob = dumps_function(preprocessor)
+        if self._data is not None:
+            data = dict(self._data)
+            data[self._PREPROCESSOR_KEY] = blob
+            return Checkpoint.from_dict(data)
+        with open(os.path.join(self._path, self._PREPROCESSOR_FILE),
+                  "wb") as f:
+            f.write(blob)
+        return self
+
+    def get_preprocessor(self) -> Optional[Any]:
+        if self._data is not None:
+            blob = self._data.get(self._PREPROCESSOR_KEY)
+            if blob is None:
+                # a directory checkpoint shipped via to_dict carries the
+                # sidecar in its file map
+                blob = self._data.get("__files__", {}).get(
+                    self._PREPROCESSOR_FILE)
+            return pickle.loads(blob) if blob is not None else None
+        fp = os.path.join(self._path, self._PREPROCESSOR_FILE)
+        if os.path.exists(fp):
+            with open(fp, "rb") as f:
+                return pickle.loads(f.read())
+        # a dict checkpoint persisted to a directory (CheckpointManager)
+        # carries the key inside checkpoint.pkl, not as a sidecar
+        dp = os.path.join(self._path, _DICT_FILE)
+        if os.path.exists(dp):
+            with open(dp, "rb") as f:
+                blob = pickle.load(f).get(self._PREPROCESSOR_KEY)
+            if blob is not None:
+                return pickle.loads(blob)
+        return None
 
     @property
     def path(self) -> Optional[str]:

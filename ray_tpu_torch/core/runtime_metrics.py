@@ -1,5 +1,6 @@
-"""The serve series of the runtime's self-metrics that the decode engine
-feeds (counterpart of the serve part of ``ray_tpu/core/runtime_metrics.py``).
+"""The series of the runtime's self-metrics that the decode engine and the
+Train checkpoint manager feed (counterpart of the serve part and the
+storage-fault counter of ``ray_tpu/core/runtime_metrics.py``).
 
 Same names, help strings, tag keys and buckets as the JAX package, so a
 series renders to the same exposition lines in both.  The controller,
@@ -55,3 +56,12 @@ SERVE_SPEC_ACCEPTANCE = m.Gauge(
     "Cumulative speculative-decoding acceptance ratio (accepted / "
     "proposed draft tokens) per serve decode engine — the knob that "
     "decides whether spec_k is paying for itself", ("deployment",))
+STORAGE_FAULTS = m.Counter(
+    "ray_tpu_storage_faults_total",
+    "Storage faults absorbed by a degradation ladder, by site and "
+    "outcome (retained: spill failed, object stayed in memory | "
+    "backpressured: a put waited out a spill fault | missing / "
+    "corrupt_dropped: a spill copy was unusable and the fetch ladder "
+    "fell through | kept_previous: a checkpoint write failed, the last "
+    "good one stands | shed: a best-effort incident write was dropped "
+    "| leaked: a spill-file GC unlink failed)", ("site", "outcome"))

@@ -8,6 +8,8 @@ the GPipe pipeline (`pipeline`), and the gang bootstrap over a
 the cards, gloo on the CPU.
 """
 
+import importlib
+
 from .mesh import (  # noqa: F401
     MeshSpec,
     MESH_AXES,
@@ -18,20 +20,27 @@ from .mesh import (  # noqa: F401
     mesh_shape_for,
     use_mesh,
 )
-from .sharding import (  # noqa: F401
-    PartitionSpec,
-    ShardingRules,
-    logical_to_mesh_axes,
-    named_sharding,
-    pytree_shardings,
-    shard_pytree,
-    constrain,
-    batch_sharding,
-    device_put,
-    DP_RULES,
-    FSDP_RULES,
-    TP_RULES,
-    FSDP_TP_RULES,
-)
 from .coordinator import join_mesh_gang, leave_mesh_gang  # noqa: F401
-from .pipeline import microbatch, pipeline_apply, unmicrobatch  # noqa: F401
+
+# The sharding engine and the pipeline import DTensor, about a second of
+# import on a CPU that a rank which only joins a gang need not pay: their
+# names load on first use.
+_LAZY = {
+    **{name: "sharding" for name in (
+        "PartitionSpec", "ShardingRules", "logical_to_mesh_axes",
+        "named_sharding", "pytree_shardings", "shard_pytree", "constrain",
+        "batch_sharding", "device_put", "DP_RULES", "FSDP_RULES",
+        "TP_RULES", "FSDP_TP_RULES")},
+    **{name: "pipeline" for name in (
+        "microbatch", "pipeline_apply", "unmicrobatch")},
+}
+_SUBMODULES = ("collectives", "sharding", "pipeline")
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    if name in _LAZY:
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

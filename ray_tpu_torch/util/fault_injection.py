@@ -19,9 +19,11 @@ draws from a per-rule ``random.Random(seed)``.  Every injected fault counts
 in ``ray_tpu_chaos_injected_total{site,action}`` (registered only while a
 plan is armed) and records a ``chaos::<site>`` span.
 
-The port threads one site so far: ``serve.spec_verify`` in the decode
+The port threads two sites so far: ``serve.spec_verify`` in the decode
 engine's speculative iteration (``delay`` / ``latency`` sleep, any other
-action raises, and the engine falls back to a plain step).  ``KNOWN_SITES``
+action raises, and the engine falls back to a plain step) and
+``train.checkpoint_register`` in the Train checkpoint manager
+(`fs_point`: an injected ``OSError``, the previous checkpoint kept).  ``KNOWN_SITES``
 is the JAX package's whole table, so a plan validates the same in both
 packages.  Spreading a plan over processes (the controller's KV, the
 ``chaos_plan`` setting) waits for the port's runtime.
@@ -198,6 +200,26 @@ class FaultPlan:
             import asyncio
             await asyncio.sleep(max(0.0, act["delay_s"]))
         return act
+
+
+def fs_point(site: str, key: str = "") -> None:
+    """Evaluate a filesystem chaos site (``train.checkpoint_register``):
+    raises the injected ``OSError`` (errno per action) or sleeps through a
+    ``delay`` stall, blocking, as a stalling fsync does to its caller."""
+    if ACTIVE is None:
+        return
+    act = ACTIVE.point(site, key)
+    if act is None:
+        return
+    if act["action"] in _UNIVERSAL_ACTIONS:
+        time.sleep(max(0.0, act["delay_s"]))
+        return
+    import errno
+    import os
+    eno = {"enospc": errno.ENOSPC, "eio": errno.EIO}.get(
+        act["action"], errno.EIO)
+    raise OSError(eno, f"chaos[{act['rule_id']}]: injected "
+                       f"{os.strerror(eno)}", key or site)
 
 
 # ----------------------------------------------------------- arm / disarm

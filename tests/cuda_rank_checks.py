@@ -13,8 +13,11 @@ backward outside the mesh block), pp=2 x fsdp=2 (the pipelined step with
 layers="pp", and a placed stack's slabs), fsdp=2 x ep=2 (the MoE step) and
 dp=4 (DD-PPO, whose learners must end an iteration with the same
 weights).  A train step is held against the plain step on one rank, at
-the CPU tests' bounds.  Prints a line a check, then one JSON object;
-exits 1 where a check fails.
+the CPU tests' bounds.  Then the Train gang (`TorchTrainer` on the port's
+actor layer, four spawned ranks): the all-reduce of the ranks (12.0), and
+the tiny fp32 model's steps at dp=4 and fsdp=4 against the same loop on
+one rank, with no process left after.  Prints a line a check, then one
+JSON object; exits 1 where a check fails.
 """
 
 from __future__ import annotations
@@ -195,6 +198,50 @@ def judge(jobs, results, device):
     return out
 
 
+def trainer_checks(device, out_dir):
+    """→ {check: {numbers..., "ok": bool}} of the Train gang at WORLD
+    ranks: each rank on its card (``device`` "cuda") or gloo on the CPU."""
+    import multiprocessing
+
+    import torch_train_loops as loops
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.train import SpmdConfig, TorchTrainer
+
+    def fit(name, fn, workers, mesh, config=None):
+        result = TorchTrainer(
+            fn, train_loop_config=config,
+            scaling_config=ScalingConfig(
+                num_workers=workers,
+                device=None if device == "cuda" else "cpu"),
+            backend_config=SpmdConfig(mesh=mesh),
+            run_config=RunConfig(name=name, storage_path=out_dir)).fit()
+        if result.error is not None:
+            raise RuntimeError(f"trainer {name} failed") from result.error
+        return result
+
+    out = {}
+    res = fit("allreduce", loops.rank_allreduce, WORLD, f"dp={WORLD}")
+    out["trainer:allreduce"] = {
+        "total": res.metrics["total"], "world": res.metrics["world"],
+        "ok": res.metrics["total"] == 12.0 and res.metrics["world"] == WORLD}
+    job = {"params": _weights(loops.TINY), "steps": 2,
+           "tokens": np.random.default_rng(1).integers(
+               0, 256, (WORLD, 32), dtype=np.int32)}
+    one = fit("one", loops.tiny_steps, 1, None, job).metrics_history
+    for mesh in (f"dp={WORLD}", f"fsdp={WORLD}"):
+        got = fit(mesh, loops.tiny_steps, WORLD, mesh, job).metrics_history
+        rel = max(abs(g[key] - w[key]) / abs(w[key])
+                  for g, w in zip(got, one) for key in ("loss", "grad_norm"))
+        out[f"trainer:{mesh}"] = {
+            "losses": [g["loss"] for g in got], "max_rel": rel,
+            "ok": len(got) == len(one) and rel <= TOL
+            and all(g["world"] == WORLD for g in got)}
+    left = multiprocessing.active_children()
+    out["trainer:no_process_left"] = {"left": [p.pid for p in left],
+                                      "ok": not left}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -206,6 +253,11 @@ def main():
             print(f"needs {WORLD} cards, found {torch.cuda.device_count()}",
                   file=sys.stderr)
             sys.exit(1)
+        import subprocess
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(), flush=True)
         from ray_tpu_torch.kernels import build
         for built in build.build_all():      # once, before the ranks load
             print(f"built {built.name} in {built.seconds:.1f} s", flush=True)
@@ -213,8 +265,9 @@ def main():
     jobs = checks()
     results = run_ranks(Path(args.out), WORLD, jobs, timeout=600.0,
                         device=args.device)
-    seconds = time.perf_counter() - t0
     verdict = judge(dict(jobs), results, args.device)
+    verdict.update(trainer_checks(args.device, args.out))
+    seconds = time.perf_counter() - t0
     for name, res in verdict.items():
         print(f"{'ok  ' if res['ok'] else 'FAIL'} {name}: {res}", flush=True)
     ok = all(res["ok"] for res in verdict.values())

@@ -851,3 +851,30 @@ def test_sequence_parallel_attention_on_the_card(cuda):
                         "flash_bwd_dkv": 1}
     assert set(out["ring"]["launches"].values()) == {0}
 
+
+
+def test_train_gang_on_the_card(cuda, tmp_path, monkeypatch):
+    """chip_smoke.py's train_gang (a) at a tiny flash config: the model's
+    steps in this process, then through TorchTrainer(num_workers=1) with
+    SpmdConfig (a one-rank NCCL gang in a spawned process): the gang's
+    first loss and grad norm bitwise the in-process step's, launches
+    4/2/2 a step counted in the rank."""
+    import torch.distributed as dist
+
+    chip_smoke = _chip_smoke()
+    monkeypatch.setattr(chip_smoke, "GANG_DIR", str(tmp_path))
+    cfg = dict(d_model=128, n_heads=2, n_kv_heads=1, attention_impl="flash",
+               remat="dots", norm_remat=True, loss_chunk=16, max_seq_len=64,
+               param_dtype=torch.bfloat16)
+    tokens = np.random.default_rng(0).integers(0, 256, (2, 64))
+    per_step = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    try:
+        launches, out = chip_smoke.gang_llama(
+            torch.cuda.get_device_name(0), "tiny", cfg, tokens, per_step)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert launches == {k: n * chip_smoke.GANG_STEPS
+                        for k, n in per_step.items()}
+    assert (out["first_loss"], out["first_grad_norm"]) == tuple(
+        out["plain_first"])

@@ -359,7 +359,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "          'rl.alpha_zero', 'rl.slateq', 'rl.ddppo',\n"
         "          'parallel.mesh', 'parallel.sharding',\n"
         "          'parallel.collectives', 'parallel.pipeline',\n"
-        "          'parallel.coordinator', 'ops.ring_attention'):\n"
+        "          'parallel.coordinator', 'ops.ring_attention',\n"
+        "          'core.actors', 'air.session', 'air.config',\n"
+        "          'train.backend', 'train.backend_executor',\n"
+        "          'train.worker_group', 'train.trainer',\n"
+        "          'train.checkpointing'):\n"
         "    assert 'ray_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
