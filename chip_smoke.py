@@ -174,7 +174,23 @@ runs these phases, each fatal on failure:
                step-1 checkpoint, losses bitwise an uninterrupted run's)
                and a rank SIGKILLed mid-run (fit returns a
                TrainingFailedError naming rank 0 and exit code -9 within
-               30 s); no child process left.
+               30 s); then (d) llama-1b as in (a) in a one-rank gang with
+               FailureConfig(max_failures=1): params and the AdamW state
+               saved once with Checkpoint.from_pytree after step 1 and
+               reported, a failure at step 2, the restarted rank restoring
+               the save with to_pytree onto its card: steps 2-3 bitwise
+               (a)'s, 32/16/16 launches a step, the save's bytes and
+               seconds, the manager's register (copy) seconds, the
+               restore's seconds and the disk before the save; no child
+               process left.
+ 15. host_dp — ViT-B/16 at batch 64 trained host data-parallel: each
+               step's gradients through host_collective.allreduce_pytree,
+               first in this process with no gang, then through
+               TorchTrainer(num_workers=1, backend_config=HostArrayConfig())
+               (the trainer's TCPStore, no process group): the losses of 3
+               steps bitwise the in-process loop's, 12/12/12 launches a
+               step, the step split into card work and the host reduce, the
+               reduce's bytes and GB/s, the most the store held.
 The kernel phases also hold and time each kernel at the MoE train shape,
 the ViT shapes and the DT shapes (fp32, 60 tokens, one head of 128; the
 planted faults there include the causal mask left off and the first key
@@ -184,8 +200,8 @@ seconds.  Then one JSON line of the engine's numbers, one of the moe and
 vit phases' (with the phase seconds), one of the rl phase's, one of the
 offpolicy phase's, one of the rl_breadth phase's, one of the rl_rest
 phase's, one of the parallel phase's, one of the train_gang phase's, one
-of the kernels, and last the device line.  Exits non-zero
-without a result when no CUDA device is present.
+of the host_dp phase's, one of the kernels, and last the device line.
+Exits non-zero without a result when no CUDA device is present.
 """
 
 import dataclasses
@@ -342,6 +358,15 @@ GANG_TINY = dict(n_layers=1, d_model=32, n_heads=2, n_kv_heads=2,
                  max_seq_len=32, dtype=torch.float32)
 GANG_TINY_STEPS, GANG_FAIL_AT = 4, 2
 GANG_KILL_BOUND_S = 30.0
+# train_gang (d): the rank saves params and AdamW state with from_pytree
+# after step GANG_RESUME_AT - 1, fails once at GANG_RESUME_AT and the
+# restarted rank restores the save and runs the rest of GANG_STEPS; the
+# disk must hold the save twice (the rank's and the manager's copy)
+GANG_RESUME_AT = 2
+GANG_DISK_FACTOR = 2.2
+# the host_dp phase: ViT-B/16 at the vit phase's batch, trained host
+# data-parallel (each step's gradients through host_collective)
+HOST_DP_STEPS = 3
 GANG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "train_gang")
 # the offpolicy phase: double DQN on CartPole at the JAX package's DQN row
@@ -3996,6 +4021,7 @@ def gang_llama(card, preset, cfg_kw, tokens, expected):
     plain_ms = float(np.median(walls[1:]))
     out = {"first_loss": first[0], "first_grad_norm": first[1],
            "plain_first": list(plain[0]), "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
            "gang_step_ms": gang_ms, "plain_step_ms": plain_ms,
            "launches_per_step": [h["launches"] for h in hist],
            "spawn_to_loop_s": hist[0]["loop_started"] - t0,
@@ -4195,6 +4221,180 @@ def gang_killed_rank(card, tokens):
             "noticed_after_s": after}
 
 
+def tree_bytes(tree):
+    """Bytes of the tensors of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() \
+        if isinstance(tree, torch.Tensor) else 0
+
+
+def gang_resume_loop(config):
+    """A rank of train_gang (d): (a)'s steps, with params and the AdamW
+    state saved once with Checkpoint.from_pytree after step
+    GANG_RESUME_AT - 1 and reported; rank 0 fails once at GANG_RESUME_AT
+    (a marker file remembers it did); a restarted rank restores the
+    registered save with to_pytree onto its card and runs the rest.  Each
+    step reports its loss, grad norm and this rank's flash launches; the
+    save and the restore their seconds and bytes."""
+    import shutil
+
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.air import Checkpoint, session
+    from ray_tpu_torch.models import make_train_step, param_leaves
+    from ray_tpu_torch.parallel import use_mesh
+    device = session.get_device()
+    cfg, params, opt, batch = gang_llama_state(
+        config["preset"], config["cfg"], config["tokens"], device)
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    start, restore, ck = 0, None, session.get_checkpoint()
+    if ck is not None:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state = ck.to_pytree(device=device)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        with torch.no_grad():
+            for leaf, saved in zip(param_leaves(params),
+                                   param_leaves(state["params"])):
+                leaf.copy_(saved)
+        for moments in state["opt"]["state"].values():
+            # AdamW keeps its step count on the host
+            moments["step"] = moments["step"].cpu()
+        opt.load_state_dict(state["opt"])
+        start = state["step"] + 1
+        nbytes = tree_bytes(state)
+        restore = {"seconds": seconds, "bytes": nbytes,
+                   "gb_per_s": nbytes / seconds / 1e9, "from": ck.path}
+        del state
+    with use_mesh(session.get_mesh()):
+        step = make_train_step(cfg, opt)
+        for i in range(start, config["steps"]):
+            if i == GANG_RESUME_AT and session.get_world_rank() == 0 \
+                    and not os.path.exists(config["marker"]):
+                open(config["marker"], "w").close()
+                raise RuntimeError(f"injected failure at step {i}")
+            for kernel in kernels:
+                kernel.launches = 0
+            m = step(params, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])  # syncs
+            report = {"step": i, "loss": loss, "grad_norm": norm,
+                      "launches": {k.__name__: k.launches for k in kernels},
+                      "restore": restore if i == start else None}
+            ck = None
+            if i == GANG_RESUME_AT - 1:
+                tree = {"params": params, "opt": opt.state_dict(), "step": i}
+                nbytes = tree_bytes(tree)
+                os.makedirs(config["path"], exist_ok=True)
+                disk = shutil.disk_usage(config["path"])
+                if disk.free < GANG_DISK_FACTOR * nbytes:
+                    raise RuntimeError(
+                        f"not enough disk for the save: {disk.free} bytes "
+                        f"free under {config['path']}, the save and its "
+                        f"registered copy need {2 * nbytes}")
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                ck = Checkpoint.from_pytree(tree, path=config["path"])
+                seconds = time.perf_counter() - t0
+                report["save"] = {
+                    "seconds": seconds, "bytes": nbytes,
+                    "gb_per_s": nbytes / seconds / 1e9,
+                    "disk_before": {"total": disk.total, "used": disk.used,
+                                    "free": disk.free}}
+            session.report(report, checkpoint=ck)
+
+
+def gang_resume(card, preset, cfg_kw, tokens, expected, uninterrupted):
+    """train_gang (d): ``preset`` saved sharded after step 1 in a one-rank
+    SpmdConfig gang, failed at step 2 and resumed from the save with
+    FailureConfig(max_failures=1).  The resumed steps' losses and grad
+    norms must be bitwise (a)'s uninterrupted steps' (``uninterrupted``:
+    (losses, grad norms)); each step's launches ``expected``, counted in
+    the rank.  The manager's register (its copy of the save into the run
+    directory) is timed here, where the trainer runs it.  → (launches,
+    results)."""
+    from ray_tpu_torch.air import FailureConfig, RunConfig, ScalingConfig
+    from ray_tpu_torch.train import SpmdConfig, TorchTrainer, checkpointing
+
+    register = checkpointing.CheckpointManager.register
+    registered = []
+
+    def timed_register(self, iteration, checkpoint, metrics=None):
+        t0 = time.perf_counter()
+        path = register(self, iteration, checkpoint, metrics)
+        registered.append({"iteration": iteration,
+                           "seconds": time.perf_counter() - t0})
+        return path
+
+    checkpointing.CheckpointManager.register = timed_register
+    try:
+        t0 = time.time()
+        result = TorchTrainer(
+            gang_resume_loop,
+            train_loop_config={
+                "preset": preset, "cfg": cfg_kw, "tokens": tokens,
+                "steps": GANG_STEPS,
+                "path": os.path.join(GANG_DIR, "resume_saves"),
+                "marker": os.path.join(GANG_DIR, "resume_failed_once")},
+            scaling_config=ScalingConfig(num_workers=1),
+            backend_config=SpmdConfig(),
+            run_config=RunConfig(
+                name="resume", storage_path=GANG_DIR,
+                failure_config=FailureConfig(max_failures=1))).fit()
+        fit_s = time.time() - t0
+    finally:
+        checkpointing.CheckpointManager.register = register
+    if result.error is not None:
+        raise AssertionError(f"train_gang (d): the {preset} run failed") \
+            from result.error
+    hist = result.metrics_history
+    if [h["step"] for h in hist] != list(range(GANG_STEPS)):
+        raise AssertionError(f"train_gang (d): steps {hist}")
+    save = hist[GANG_RESUME_AT - 1]["save"]
+    restore = hist[GANG_RESUME_AT]["restore"]
+    got = [(h["loss"], h["grad_norm"]) for h in hist]
+    want = list(zip(*uninterrupted))
+    gaps = [max(abs(g[0] - w[0]), abs(g[1] - w[1]))
+            for g, w in zip(got, want)]
+    out = {"losses": [g[0] for g in got], "grad_norms": [g[1] for g in got],
+           "uninterrupted_losses": [w[0] for w in want],
+           "uninterrupted_grad_norms": [w[1] for w in want],
+           "bitwise": got == want, "largest_gap": max(gaps),
+           "launches_per_step": [h["launches"] for h in hist],
+           "save": save, "register": registered, "restore": restore,
+           "fit_s": fit_s}
+    log(f"  (d) {preset} resumed from a sharded save: steps 0-{GANG_STEPS - 1}"
+        f" losses {out['losses']} grad norms {out['grad_norms']} against "
+        f"(a)'s {out['uninterrupted_losses']} / "
+        f"{out['uninterrupted_grad_norms']}: bitwise {out['bitwise']}, "
+        f"largest gap {out['largest_gap']!r}; launches a step "
+        f"{hist[0]['launches']} (counted in the rank) [{card}]")
+    log(f"  (d) disk before the save {save['disk_before']}; the rank's "
+        f"save {save['bytes']} bytes in {save['seconds']:.2f} s "
+        f"({save['gb_per_s']:.2f} GB/s); the manager's register (copy) "
+        + ", ".join(f"iteration {r['iteration']} {r['seconds']:.2f} s"
+                    for r in registered)
+        + f"; the restore {restore['bytes']} bytes in "
+        f"{restore['seconds']:.2f} s ({restore['gb_per_s']:.2f} GB/s); "
+        f"whole fit {fit_s:.2f} s [{card}]")
+    if got[GANG_RESUME_AT:] != want[GANG_RESUME_AT:GANG_STEPS]:
+        raise AssertionError(
+            f"train_gang (d): the resumed steps are not (a)'s bitwise: "
+            f"largest gap {max(gaps[GANG_RESUME_AT:])!r}")
+    if got != want:
+        raise AssertionError("train_gang (d): the steps before the save "
+                             f"are not (a)'s: gaps {gaps}")
+    if any(h["launches"] != expected for h in hist):
+        raise AssertionError(f"train_gang (d): launches a step "
+                             f"{out['launches_per_step']}, expected "
+                             f"{expected}")
+    launches = {name: sum(h["launches"][name] for h in hist)
+                for name in expected}
+    return launches, out
+
+
 def phase_train_gang(card, ops):
     import concurrent.futures
     import importlib.util
@@ -4213,9 +4413,14 @@ def phase_train_gang(card, ops):
         tokens = np.random.default_rng(0).integers(
             0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
         L = cfg.n_layers
-        launches, llama = gang_llama(
-            card, "llama-1b", GANG_LLAMA, tokens,
-            {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+        expected = {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                    "flash_bwd_dkv": L}
+        launches, llama = gang_llama(card, "llama-1b", GANG_LLAMA, tokens,
+                                     expected)
+        resumed_launches, resumed = gang_resume(
+            card, "llama-1b", GANG_LLAMA, tokens, expected,
+            (llama["losses"], llama["grad_norms"]))
+        launches = {k: v + resumed_launches[k] for k, v in launches.items()}
         tiny = np.random.default_rng(1).integers(0, 256, (2, 32))
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             restart = pool.submit(gang_restart, card, tiny)
@@ -4228,7 +4433,167 @@ def phase_train_gang(card, ops):
     if left:
         raise AssertionError("train_gang: a gang left a process")
     return launches, {"cloudpickle": cloudpickle, "llama": llama,
-                      "restart": restart, "killed_rank": killed}
+                      "restart": restart, "killed_rank": killed,
+                      "resumed": resumed}
+
+
+# -- host_dp: ViT-B/16 trained host data-parallel ----------------------------
+# As the train_gang ranks, host_dp_loop runs in a spawned rank process that
+# finds it by reference in this module.
+
+
+def host_dp_state(device):
+    """The vit phase's model, batch and AdamW on ``device``: weights from
+    the seed-0 generator, the batch from the seed-1 one."""
+    from ray_tpu_torch.models import ViTConfig, init_vit_params, param_leaves
+    cfg = ViTConfig.base()
+    params = init_vit_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    shape = (cfg.image_size, cfg.image_size, cfg.channels)
+    batch = {"image": torch.randn((VIT_TRAIN_BATCH, *shape), generator=gen,
+                                  device=device),
+             "label": torch.randint(0, cfg.num_classes, (VIT_TRAIN_BATCH,),
+                                    generator=gen, device=device)}
+    opt = torch.optim.AdamW(param_leaves(params), lr=3e-4, weight_decay=0.1)
+    return cfg, params, opt, batch
+
+
+def host_dp_steps(device, steps):
+    """``steps`` host data-parallel steps of ViT-B/16 on ``device``: the
+    loss's forward and backward on the card (the train step's own helpers),
+    the gradients through ``host_collective.allreduce_pytree(..., "mean")``
+    (the trainer's store in a HostArrayConfig rank; in a process with no
+    gang, the flatten and its float32 round trip alone), written back, one
+    AdamW step.  → per step: loss, the flash launches and the wall split
+    into card work and the reduce (ms, synced)."""
+    from ray_tpu_torch import ops
+    from ray_tpu_torch.models import param_leaves, vit_loss
+    from ray_tpu_torch.models.transformer import _apply_grads, _loss_and_grads
+    from ray_tpu_torch.train import host_collective
+    cfg, params, opt, batch = host_dp_state(device)
+    leaves = param_leaves(params)
+    kernels = (ops.flash_fwd, ops.flash_bwd_dq, ops.flash_bwd_dkv)
+    out = []
+    for _ in range(steps):
+        for kernel in kernels:
+            kernel.launches = 0
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        loss, _, grads = _loss_and_grads(
+            lambda p: vit_loss(p, batch, cfg), params, leaves)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        grads = host_collective.allreduce_pytree(list(grads), "mean")
+        torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
+        _apply_grads(opt, leaves, grads)
+        loss = float(loss)                                        # syncs
+        t3 = time.perf_counter()
+        out.append({"loss": loss,
+                    "launches": {k.__name__: k.launches for k in kernels},
+                    "card_ms": ((t1 - t0) + (t3 - t2)) * 1e3,
+                    "reduce_ms": (t2 - t1) * 1e3,
+                    "step_ms": (t3 - t0) * 1e3,
+                    "reduce_bytes": 4 * sum(g.numel() for g in grads)})
+    return out
+
+
+def host_dp_loop(config):
+    """A rank of the host_dp phase: host_dp_steps on its card, each step
+    reported with the bytes the store held at once for its reduce."""
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.train import host_collective
+    t0 = time.time()
+    for i, step in enumerate(host_dp_steps(session.get_device(),
+                                           config["steps"])):
+        session.report({"step": i, **step,
+                        "store_held_bytes":
+                            host_collective.peak_held_bytes(),
+                        "world": host_collective._STORE[2],
+                        "loop_started": t0})
+
+
+def phase_host_dp(card, ops):
+    """ViT-B/16 at batch 64 trained host data-parallel: HOST_DP_STEPS steps
+    in this process with no gang, then through TorchTrainer(num_workers=1,
+    backend_config=HostArrayConfig()) (no process group; the gradients
+    through the trainer's TCPStore).  The gang's losses must be bitwise the
+    in-process loop's (a mean over one rank is the value itself, and the
+    float32 round trip of each fp32 leaf is exact); 12/12/12 launches a
+    step, counted in the rank."""
+    import multiprocessing
+    import shutil
+
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.models import ViTConfig
+    from ray_tpu_torch.train import HostArrayConfig, TorchTrainer
+
+    log("== host_dp: ViT-B/16, batch 64, trained host data-parallel "
+        "(gradients through host_collective) in this process, then through "
+        "TorchTrainer(num_workers=1) with HostArrayConfig")
+    L = ViTConfig.base().n_layers
+    expected = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    plain = host_dp_steps("cuda", HOST_DP_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_dir = os.path.join(GANG_DIR, "host_dp")
+    t0 = time.time()
+    try:
+        result = TorchTrainer(
+            host_dp_loop, train_loop_config={"steps": HOST_DP_STEPS},
+            scaling_config=ScalingConfig(num_workers=1),
+            backend_config=HostArrayConfig(),
+            run_config=RunConfig(name="host_dp", storage_path=run_dir)).fit()
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    fit_s = time.time() - t0
+    if result.error is not None:
+        raise AssertionError("host_dp: the gang failed") from result.error
+    hist = result.metrics_history
+    med = {key: float(np.median([h[key] for h in hist[1:]]))
+           for key in ("step_ms", "card_ms", "reduce_ms")}
+    plain_med = {key: float(np.median([p[key] for p in plain[1:]]))
+                 for key in ("step_ms", "card_ms", "reduce_ms")}
+    nbytes = hist[0]["reduce_bytes"]
+    out = {"losses": [h["loss"] for h in hist],
+           "plain_losses": [p["loss"] for p in plain],
+           "bitwise": [h["loss"] for h in hist] == [p["loss"] for p in plain],
+           "gang": med, "in_process": plain_med,
+           "reduce_share": med["reduce_ms"] / med["step_ms"],
+           "reduce_bytes": nbytes,
+           "reduce_gb_per_s": nbytes / (med["reduce_ms"] / 1e3) / 1e9,
+           "store_held_bytes_max": max(h["store_held_bytes"] for h in hist),
+           "launches_per_step": [h["launches"] for h in hist],
+           "spawn_to_loop_s": hist[0]["loop_started"] - t0, "fit_s": fit_s}
+    log(f"  losses {out['losses']} against the in-process loop's "
+        f"{out['plain_losses']}: bitwise {out['bitwise']}; launches a step "
+        f"{hist[0]['launches']} (counted in the rank) [{card}]")
+    log(f"  a step (medians of steps 2-{HOST_DP_STEPS}): {med['step_ms']:.2f}"
+        f" ms, card {med['card_ms']:.2f} ms, host reduce "
+        f"{med['reduce_ms']:.2f} ms ({100 * out['reduce_share']:.1f}% of the "
+        f"step) of {nbytes} bytes ({out['reduce_gb_per_s']:.3f} GB/s); in "
+        f"process with no gang {plain_med['step_ms']:.2f} ms, card "
+        f"{plain_med['card_ms']:.2f}, the reduce's flatten and round trip "
+        f"{plain_med['reduce_ms']:.2f}; the TCPStore held at most "
+        f"{out['store_held_bytes_max']} bytes; fit() to the loop "
+        f"{out['spawn_to_loop_s']:.2f} s, whole fit {fit_s:.2f} s [{card}]")
+    left = multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"host_dp: a gang left a process: {left}")
+    if not out["bitwise"]:
+        raise AssertionError("host_dp: the gang's losses are not the "
+                             "in-process loop's bitwise")
+    if any(h["launches"] != expected for h in hist) or any(
+            p["launches"] != expected for p in plain):
+        raise AssertionError(f"host_dp: launches a step "
+                             f"{out['launches_per_step']}, expected "
+                             f"{expected}")
+    if hist[0]["world"] != 1 or not all(np.isfinite(out["losses"])):
+        raise AssertionError("host_dp: the gang's losses are not finite")
+    launches = {name: sum(h["launches"][name] for h in hist)
+                for name in expected}
+    return launches, out
 
 
 def top_kernels(by_name, n):
@@ -4554,6 +4919,7 @@ def main():
                                           ops)
     by_path["train_gang"], train_gang = timed("train_gang", phase_train_gang,
                                               card, ops)
+    by_path["host_dp"], host_dp = timed("host_dp", phase_host_dp, card, ops)
     by_path.update(moe_paths)
     by_path.update(vit_paths)
     log(f"  phase seconds: {json.dumps(seconds)}")
@@ -4574,6 +4940,7 @@ def main():
     print(json.dumps({"parallel": parallel, "seconds": seconds["parallel"]}))
     print(json.dumps({"train_gang": train_gang,
                       "seconds": seconds["train_gang"]}))
+    print(json.dumps({"host_dp": host_dp, "seconds": seconds["host_dp"]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

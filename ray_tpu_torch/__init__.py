@@ -15,8 +15,12 @@ flash-attention kernels; every on-card module of RL (``rl``: PPO to
 DD-PPO, the replay family, IMPALA, multi-agent, offline, bandits, ES,
 MAML, Dreamer, DT, AlphaZero, SlateQ); and the parallel layer
 (``parallel``: meshes, sharding rules on DTensors, the pipeline, the gang
-bootstrap) with ring and Ulysses attention.  ``ROADMAP.md`` lists what is
-still to come: the multi-process runtime pieces.
+bootstrap) with ring and Ulysses attention; the Train gang on the port's
+own actor layer (``train``), with host collectives (``HostArrayConfig``,
+``util.collective``) on a store, array staging (``core.serialization``)
+and sharded tree checkpoints (``air.Checkpoint.from_pytree``).
+``ROADMAP.md`` lists what is still to come: the rest of the multi-process
+runtime pieces.
 """
 
 from .device import resolve_device  # noqa: F401

@@ -1,5 +1,5 @@
 """Shared ML primitives of the port (counterpart of ``ray_tpu.air``): the
-dict-backed checkpoint, the run and scaling configuration, the result of a
+checkpoint (dicts, directories, sharded trees of tensors), the run and scaling configuration, the result of a
 run and the in-train-loop session."""
 
 from .checkpoint import Checkpoint  # noqa: F401

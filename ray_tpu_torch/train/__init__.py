@@ -1,7 +1,8 @@
 """Training entry points of the port (counterpart of ``ray_tpu.train``):
 the Train gang on the port's actor layer (`TorchTrainer` → `BackendExecutor`
 → `WorkerGroup` of spawned rank processes → the train function with
-``air.session.report``; NCCL on the card, gloo on the CPU) and the RL
+``air.session.report``; NCCL on the card, gloo on the CPU, or no process
+group and `host_collective` on a store with `HostArrayConfig`) and the RL
 trainer."""
 
 from .backend import (  # noqa: F401

@@ -6,8 +6,10 @@
     on the card, gloo with ``device="cpu"``) and the gang's `DeviceMesh`
     hangs on the session (`air.session.get_mesh`).  Teardown leaves the gang
     and destroys the process group.
-  * `HostArrayConfig`: refused here; the host-side collectives come with
-    the next slice of ROADMAP item 10.
+  * `HostArrayConfig`: no process group.  The trainer's process hosts a
+    `TCPStore` for the attempt (the counterpart of the reducer actor the JAX
+    trainer owns) and each rank reduces host arrays through it with
+    `train.host_collective`; a restart gets a fresh store and key prefix.
   * The gloo group for reference-style torch train functions is
     `trainer.TorchCompatTrainer`'s backend.
 
@@ -105,10 +107,49 @@ class _SpmdBackend(Backend):
 
 @dataclasses.dataclass
 class HostArrayConfig(BackendConfig):
-    """Refused: the host-side collective backend (a reducer actor per gang,
-    ``train/host_collective.py``) comes with the next slice."""
+    """Host-side collective backend: a store per gang attempt,
+    `train.host_collective` on the ranks, no process group."""
 
-    def __post_init__(self):
-        raise NotImplementedError(
-            "HostArrayConfig: the host collectives come with the next slice "
-            "of ROADMAP item 10; use SpmdConfig (torch.distributed) instead")
+    @property
+    def backend_cls(self):
+        return _HostArrayBackend
+
+
+def _join_host_store(host: str, port: int, prefix: str,
+                     world_size: int) -> None:
+    """On a rank: connect to the trainer's store and hand it to
+    `host_collective` with this rank's place in the gang."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from ..air import session
+    from . import host_collective
+    store = dist.TCPStore(host, port, is_master=False,
+                          timeout=timedelta(seconds=120))
+    host_collective._set_store(store, prefix, world_size,
+                               session.get_world_rank())
+
+
+class _HostArrayBackend(Backend):
+    def on_start(self, worker_group, executor) -> None:
+        import uuid
+        from datetime import timedelta
+
+        import torch.distributed as dist
+
+        from ..parallel.coordinator import _free_port
+        self._port = _free_port()
+        self._store = dist.TCPStore(
+            executor.shared_env["master_addr"], self._port, is_master=True,
+            wait_for_workers=False, timeout=timedelta(seconds=120))
+        self._prefix = f"host_collective/{executor.run_id}-" \
+                       f"{uuid.uuid4().hex[:8]}"
+
+    def worker_setup_fn(self, executor):
+        return functools.partial(
+            _join_host_store, executor.shared_env["master_addr"], self._port,
+            self._prefix, executor.num_workers)
+
+    def on_shutdown(self, worker_group, executor) -> None:
+        self._store = None

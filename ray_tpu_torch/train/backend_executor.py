@@ -78,8 +78,8 @@ class BackendExecutor:
                             for rank, worker_idx in enumerate(order)}
         local_counters: Dict[str, Any] = {}
         node_ids: Dict[str, int] = {}
-        ckpt_bytes = (resume_checkpoint.to_bytes()
-                      if resume_checkpoint else None)
+        ckpt_wire = (resume_checkpoint._to_wire()
+                     if resume_checkpoint else None)
         futures = []
         for worker_idx in order:
             host = meta[worker_idx]["hostname"]
@@ -91,7 +91,7 @@ class BackendExecutor:
                         host, itertools.count())),
                     world_size=self.num_workers,
                     node_rank=node_ids.setdefault(host, len(node_ids)),
-                    trial_name=trial_name, checkpoint_bytes=ckpt_bytes,
+                    trial_name=trial_name, checkpoint=ckpt_wire,
                     dataset_shard=(dataset_shards[rank]
                                    if dataset_shards else None),
                     device=self.device))

@@ -149,13 +149,19 @@ class TorchTrainer:
                     continue
                 last_metrics = rank0["metrics"]
                 history.append(last_metrics)
-                ckpt_blob = rank0.get("checkpoint")
-                if ckpt_blob is not None:
-                    ckpt = Checkpoint.from_bytes(ckpt_blob)
-                    if self.preprocessor is not None:
+                wire = rank0.get("checkpoint")
+                if wire is not None:
+                    ckpt = Checkpoint._from_wire(wire)
+                    # a directory is the rank's own (it crossed by path):
+                    # the preprocessor goes on the registered copy instead
+                    ranks_own = ckpt.path is not None
+                    if self.preprocessor is not None and not ranks_own:
                         ckpt = ckpt.with_preprocessor(self.preprocessor)
-                    ckpt_mgr.register(rank0["iteration"], ckpt,
-                                      last_metrics)
+                    path = ckpt_mgr.register(rank0["iteration"], ckpt,
+                                             last_metrics)
+                    if self.preprocessor is not None and ranks_own:
+                        Checkpoint.from_directory(path).with_preprocessor(
+                            self.preprocessor)
             executor.finish()
             return last_metrics
         finally:

@@ -39,7 +39,7 @@ class TrainWorker:
     def init_session(self, *, world_rank: int, local_rank: int,
                      world_size: int, node_rank: int,
                      trial_name: str = "train",
-                     checkpoint_bytes: Optional[bytes] = None,
+                     checkpoint: Any = None,
                      dataset_shard=None, device: Optional[str] = None):
         """``device`` "cpu", or the card (None / "cuda"): this rank computes
         on ``cuda:<local_rank>``."""
@@ -56,9 +56,8 @@ class TrainWorker:
             world_rank=world_rank, local_rank=local_rank,
             world_size=world_size, node_rank=node_rank,
             trial_name=trial_name, dataset_shard=dataset_shard, device=dev)
-        if checkpoint_bytes is not None:
-            self._session.last_checkpoint = Checkpoint.from_bytes(
-                checkpoint_bytes)
+        if checkpoint is not None:     # as `Checkpoint._to_wire` gives it
+            self._session.last_checkpoint = Checkpoint._from_wire(checkpoint)
         # install on the actor main thread as well: backend setup fns run
         # there (via execute) and need ranks / a place to hang the mesh
         _set_session(self._session)
@@ -91,7 +90,8 @@ class TrainWorker:
         return True
 
     def next_result(self, timeout_s: float = 10.0):
-        """One queued report (metrics + optional checkpoint bytes), the
+        """One queued report (metrics + optional checkpoint, as
+        `Checkpoint._to_wire` gives it: a directory by its path), the
         sentinel None when training ended, or "__timeout__".  Completion is
         latched: after the sentinel has been seen once, every later poll
         returns None at once, so a rank that ended early never keeps the
@@ -107,7 +107,7 @@ class TrainWorker:
             return None
         ckpt = item.get("checkpoint")
         if ckpt is not None:
-            item = dict(item, checkpoint=ckpt.to_bytes())
+            item = dict(item, checkpoint=ckpt._to_wire())
         return item
 
     def finish(self, timeout_s: float):

@@ -12,11 +12,17 @@ ring model's train step with FSDP_TP_RULES DTensors, and its remat
 backward outside the mesh block), pp=2 x fsdp=2 (the pipelined step with
 layers="pp", and a placed stack's slabs), fsdp=2 x ep=2 (the MoE step) and
 dp=4 (DD-PPO, whose learners must end an iteration with the same
-weights).  A train step is held against the plain step on one rank, at
+weights), and the tiny model saved with `Checkpoint.from_pytree` under
+fsdp=4 DTensors, restored onto fsdp=2,tp=2 placements and whole in this
+process, bitwise.  A train step is held against the plain step on one rank, at
 the CPU tests' bounds.  Then the Train gang (`TorchTrainer` on the port's
 actor layer, four spawned ranks): the all-reduce of the ranks (12.0), and
 the tiny fp32 model's steps at dp=4 and fsdp=4 against the same loop on
-one rank, with no process left after.  Prints a line a check, then one
+one rank; a `HostArrayConfig` gang of four (`host_collective`'s
+allreduce with every op, allgather, `allreduce_pytree` of card leaves, and
+a `util.collective` group: broadcast, send / recv, an uneven
+reducescatter) against the JAX reducer's arithmetic written out in numpy;
+no process left after.  Prints a line a check, then one
 JSON object; exits 1 where a check fails.
 """
 
@@ -92,7 +98,15 @@ def _leaves(tree):
     return [np.asarray(tree)]
 
 
-def checks():
+def _leaf_items(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaf_items(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def checks(out_dir):
     tokens64 = np.random.default_rng(1).integers(0, 256, (2, 64),
                                                  dtype=np.int32)
     tokens32 = np.random.default_rng(1).integers(0, 256, (4, 32),
@@ -120,11 +134,14 @@ def checks():
         ("train:moe", dict(step, cfg_kw=MOE, params=_weights(MOE),
                            tokens=tokens32, spec=dict(fsdp=2, ep=2))),
         ("ddppo_sync", dict(spec=dict(dp=WORLD, fsdp=1), cfg_kw=DDPPO)),
+        ("pytree_cross", dict(path=str(out_dir / "pytree"), cfg_kw=DENSE,
+                              params=_weights(DENSE))),
     ]
 
 
 def judge(jobs, results, device):
     """→ {check: {numbers..., "ok": bool}}."""
+    from ray_tpu_torch.air import Checkpoint
     from ray_tpu_torch.ops.attention import reference_attention
     out = {}
     for name, kind, causal, grads, q, k, v in jobs["attention"]["cases"]:
@@ -190,6 +207,19 @@ def judge(jobs, results, device):
         _leaves(runs[0]["before"]), first))
     learners = sorted(run["learner"] for run in runs)
     sums = {float(run["reward_sum"]) for run in runs}
+    want = dict(_leaf_items(jobs["pytree_cross"]["params"]))
+    same = all(np.array_equal(results[r]["pytree_cross"]["restored"][k], w)
+               for r in range(WORLD) for k, w in want.items())
+    on_tp = any("Shard" in results[0]["pytree_cross"]["placements"][k][4]
+                for k in want)
+    # the same save restored whole in this one process, with no group
+    whole = Checkpoint.from_directory(jobs["pytree_cross"]["path"]).to_pytree(
+        device="cuda:0" if device == "cuda" else "cpu")
+    one = all(np.array_equal(leaf.cpu().numpy(), want[k])
+              for k, leaf in _leaf_items(whole))
+    out["pytree_cross"] = {"fsdp4_to_fsdp2_tp2_bitwise": same,
+                           "tp_sharded": on_tp, "whole_here_bitwise": one,
+                           "ok": same and on_tp and one}
     out["ddppo_sync"] = {
         "learners": learners, "weights_equal": same, "moved": moved,
         "reward_sum": sorted(sums),
@@ -205,15 +235,15 @@ def trainer_checks(device, out_dir):
 
     import torch_train_loops as loops
     from ray_tpu_torch.air import RunConfig, ScalingConfig
-    from ray_tpu_torch.train import SpmdConfig, TorchTrainer
+    from ray_tpu_torch.train import HostArrayConfig, SpmdConfig, TorchTrainer
 
-    def fit(name, fn, workers, mesh, config=None):
+    def fit(name, fn, workers, mesh, config=None, backend=None):
         result = TorchTrainer(
             fn, train_loop_config=config,
             scaling_config=ScalingConfig(
                 num_workers=workers,
                 device=None if device == "cuda" else "cpu"),
-            backend_config=SpmdConfig(mesh=mesh),
+            backend_config=backend or SpmdConfig(mesh=mesh),
             run_config=RunConfig(name=name, storage_path=out_dir)).fit()
         if result.error is not None:
             raise RuntimeError(f"trainer {name} failed") from result.error
@@ -236,10 +266,61 @@ def trainer_checks(device, out_dir):
             "losses": [g["loss"] for g in got], "max_rel": rel,
             "ok": len(got) == len(one) and rel <= TOL
             and all(g["world"] == WORLD for g in got)}
+    out.update(host_checks(fit, out_dir, device))
     left = multiprocessing.active_children()
     out["trainer:no_process_left"] = {"left": [p.pid for p in left],
                                       "ok": not left}
     return out
+
+
+def host_checks(fit, out_dir, device):
+    """A `HostArrayConfig` gang of WORLD ranks (`torch_train_loops.
+    host_ops`): each result against the JAX reducer's and group actor's
+    arithmetic on the same arrays (rank-ordered numpy sums, ``/ world`` for
+    the mean, the float32 round trip of allreduce_pytree), written out here
+    because JAX does not run on the cards; bitwise."""
+    import json
+
+    import torch_train_loops as loops
+    from ray_tpu_torch.train import HostArrayConfig
+    res = fit("host_ops", loops.host_ops, WORLD, None, {"out": out_dir},
+              backend=HostArrayConfig())
+    got = []
+    for r in range(WORLD):
+        with open(Path(out_dir) / f"host_ops{r}.json") as f:
+            got.append(json.load(f))
+    xs = [loops.host_ops_input(r) for r in range(WORLD)]
+    want = {"sum": np.sum(xs, axis=0), "mean": np.sum(xs, axis=0) / WORLD,
+            "max": np.max(xs, axis=0), "min": np.min(xs, axis=0)}
+    ops_ok = all(np.array_equal(np.float32(g[op]), w)
+                 for g in got for op, w in want.items())
+    gather_ok = all(np.array_equal(np.float32(g["gather"]), np.stack(xs))
+                    for g in got)
+    # the tree's flat vector, keys sorted: b (bf16 of row 0), then w
+    flat = [np.concatenate([torch.from_numpy(x[0]).to(torch.bfloat16)
+                            .float().numpy(), x.ravel()]) for x in xs]
+    mean = np.sum(flat, axis=0) / WORLD
+    tree_b = torch.from_numpy(mean[:5]).to(torch.bfloat16).float().numpy()
+    tree_ok = all(
+        np.array_equal(np.float32(g["tree"]["w"]), mean[5:].reshape(3, 5))
+        and np.array_equal(np.float32(g["tree"]["b"]), tree_b)
+        and g["tree"]["b_dtype"] == "torch.bfloat16"
+        and all(d.startswith(device) for d in g["tree"]["devices"])
+        for g in got)
+    rows = np.sum([loops.host_ops_rows(r) for r in range(WORLD)], axis=0)
+    parts = np.array_split(rows, WORLD, axis=0)
+    group_ok = all(
+        np.array_equal(np.float32(g["broadcast"]), xs[-1] * WORLD)
+        and np.array_equal(np.float32(g["recv"]),
+                           xs[(r - 1) % WORLD] + (r - 1) % WORLD)
+        and np.array_equal(np.float32(g["scatter"]), parts[r])
+        for r, g in enumerate(got))
+    return {"host:allreduce_allgather": {
+                "ok": ops_ok and gather_ok and res.metrics["world"] == WORLD},
+            "host:allreduce_pytree_card_leaves": {"ok": tree_ok},
+            "host:collective_group": {
+                "scatter_rows": [p.shape[0] for p in parts],
+                "ok": group_ok}}
 
 
 def main():
@@ -262,7 +343,7 @@ def main():
         for built in build.build_all():      # once, before the ranks load
             print(f"built {built.name} in {built.seconds:.1f} s", flush=True)
     t0 = time.perf_counter()
-    jobs = checks()
+    jobs = checks(Path(args.out))
     results = run_ranks(Path(args.out), WORLD, jobs, timeout=600.0,
                         device=args.device)
     verdict = judge(dict(jobs), results, args.device)

@@ -878,3 +878,32 @@ def test_train_gang_on_the_card(cuda, tmp_path, monkeypatch):
                         for k, n in per_step.items()}
     assert (out["first_loss"], out["first_grad_norm"]) == tuple(
         out["plain_first"])
+
+
+def test_tensor_staging_and_a_tree_checkpoint_on_the_card(cuda, tmp_path):
+    """`core.serialization` stages a card tensor through the host and back
+    onto the card, bitwise; `Checkpoint.from_pytree` of a small tree of
+    card tensors restores onto the card whole (no device given) and into
+    card targets in place, bitwise."""
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.core.serialization import (deserialize,
+                                                  serialize_to_bytes)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = torch.randn((5, 7), generator=gen, device=cuda).to(torch.bfloat16)
+    back = deserialize(serialize_to_bytes({"t": t, "n": 3}))
+    assert back["n"] == 3 and back["t"].device.type == "cuda"
+    assert back["t"].dtype == torch.bfloat16 and torch.equal(back["t"], t)
+
+    tree = {"w": torch.randn((64, 64), generator=gen, device=cuda),
+            "opt": {"m": t, "step": torch.tensor(2.0)}, "step": 3}
+    ck = Checkpoint.from_pytree(tree, path=str(tmp_path / "ck"))
+    whole = ck.to_pytree()
+    assert whole["w"].device.type == "cuda" and whole["step"] == 3
+    assert torch.equal(whole["w"], tree["w"])
+    assert torch.equal(whole["opt"]["m"], t)
+    target = {"w": torch.zeros((64, 64), device=cuda),
+              "opt": {"m": torch.zeros_like(t), "step": torch.tensor(0.0)}}
+    placed = ck.to_pytree(target)
+    assert placed["w"] is target["w"] and torch.equal(target["w"], tree["w"])
+    assert torch.equal(target["opt"]["m"], t)
+    assert float(target["opt"]["step"]) == 2.0

@@ -363,7 +363,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "          'core.actors', 'air.session', 'air.config',\n"
         "          'train.backend', 'train.backend_executor',\n"
         "          'train.worker_group', 'train.trainer',\n"
-        "          'train.checkpointing'):\n"
+        "          'train.checkpointing', 'train.host_collective',\n"
+        "          'util.collective', 'core.serialization',\n"
+        "          'air.checkpoint'):\n"
         "    assert 'ray_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

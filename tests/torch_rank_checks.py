@@ -403,6 +403,73 @@ def check_ddppo_sync(rank, spec, cfg_kw):
             "params": _np(algo.params), "reward_sum": res["reward_sum"]}
 
 
+def check_pytree(rank, path, w, b):
+    """`Checkpoint.from_pytree` of {"w": w under fsdp=2,tp=2 as
+    P("fsdp", "tp"), "b", "step"} at 4 ranks, restored onto the swapped
+    placements P("tp", "fsdp") and onto whole tensors, then a second
+    (numbered) save of 2w and its restore: this rank's shards, the files
+    each rank wrote and the save directories."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.parallel.sharding import (NamedSharding,
+                                                 PartitionSpec, device_put)
+    mesh = _mesh({"fsdp": 2, "tp": 2})
+
+    def put(x, *spec):
+        return device_put(_t(x), NamedSharding(mesh, PartitionSpec(*spec)))
+
+    tree = {"w": put(w, "fsdp", "tp"), "b": _t(b),
+            "step": torch.tensor(3, device=_DEV)}
+    ck = Checkpoint.from_pytree(tree, path=path)
+    first = sorted(os.listdir(path))
+    save = os.path.join(path, first[-1])
+    swapped = ck.to_pytree({"w": put(np.zeros_like(w), "tp", "fsdp"),
+                            "b": _t(np.zeros_like(b)),
+                            "step": torch.tensor(0, device=_DEV)})
+    whole = ck.to_pytree(device=_DEV)
+    ck2 = Checkpoint.from_pytree({"w": put(w * 2, "fsdp", "tp"),
+                                  "b": _t(b), "step": 4}, path=path)
+    again = ck2.to_pytree(device=_DEV)
+    return {"saved_local": _np(tree["w"].to_local()),
+            "swapped_local": _np(swapped["w"].to_local()),
+            "swapped_placements": [repr(p) for p in
+                                   swapped["w"].placements],
+            "whole": {k: _np(v) for k, v in whole.items()},
+            "again": {k: _np(v) for k, v in again.items()},
+            "files": {n: os.path.getsize(os.path.join(save, n))
+                      for n in os.listdir(save)},
+            "saves": [first, sorted(os.listdir(path))]}
+
+
+def check_pytree_cross(rank, path, cfg_kw, params):
+    """The tiny model placed by FSDP_RULES on an fsdp=4 mesh and saved
+    with `Checkpoint.from_pytree`, then restored onto FSDP_TP_RULES
+    placements on an fsdp=2,tp=2 mesh (the cross-topology resume): each
+    restored leaf whole, and its placements."""
+    import torch
+
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.models import params_axes
+    from ray_tpu_torch.parallel import shard_pytree
+    cfg = _cfg(cfg_kw)
+    tparams = _params(params, cfg)
+    Checkpoint.from_pytree(
+        shard_pytree(tparams, params_axes(cfg), _mesh({"fsdp": 4}),
+                     _rules("FSDP_RULES")), path=path)
+    zeros = {k: ({n: torch.zeros_like(v) for n, v in t.items()}
+                 if isinstance(t, dict) else torch.zeros_like(t))
+             for k, t in tparams.items()}
+    target = shard_pytree(zeros, params_axes(cfg),
+                          _mesh({"fsdp": 2, "tp": 2}),
+                          _rules("FSDP_TP_RULES"))
+    restored = Checkpoint.from_directory(path).to_pytree(target)
+    return {"restored": {p: _np(leaf) for p, leaf in _leaf_paths(restored)},
+            "placements": {p: [repr(x) for x in leaf.placements]
+                           for p, leaf in _leaf_paths(restored)}}
+
+
 def check_launches(rank):
     """The flash kernels' launch counts in this rank so far (0 on the
     CPU, where the wrappers run their plain versions)."""

@@ -96,6 +96,114 @@ def exits_after_a_report(config):
     dist.barrier()
 
 
+def _fail_once(config, step, i):
+    """Raise at ``step`` the first time each rank gets there (a marker file
+    a rank remembers it by), so every rank of the gang fails together."""
+    marker = f"{config['marker']}.{session.get_world_rank()}"
+    if i == step and not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError(f"injected failure at step {i}")
+
+
+def host_array_steps(config):
+    """A `HostArrayConfig` gang: each step allreduces a scalar (rank + 1 +
+    step), gathers the ranks and passes a barrier through the trainer's
+    store, reporting the store's key prefix; every rank fails once at step 1
+    and the next attempt resumes after the checkpoint's step."""
+    import numpy as np
+
+    from ray_tpu_torch.train import host_collective as hc
+    ck = session.get_checkpoint()
+    rank = session.get_world_rank()
+    for i in range(ck.to_dict()["step"] + 1 if ck else 0, config["steps"]):
+        _fail_once(config, 1, i)
+        total = hc.allreduce(np.float32(rank + 1 + i), "sum")
+        gathered = hc.allgather(np.int64(rank))
+        hc.barrier()
+        session.report({"step": i, "total": float(total),
+                        "gathered": [int(g) for g in gathered],
+                        "prefix": hc._STORE[1], "world": hc._STORE[2]},
+                       checkpoint=Checkpoint.from_dict({"step": i}))
+
+
+def pytree_steps(config):
+    """A dp gang: each step saves {"w": a DTensor sharded over dp, "step"}
+    to the shared ``config["path"]`` with `Checkpoint.from_pytree` and
+    reports it; every rank fails once at step 1, and the next attempt
+    restores the registered save with ``to_pytree(device="cpu")``."""
+    import torch
+
+    from ray_tpu_torch.parallel.sharding import (NamedSharding,
+                                                 PartitionSpec, device_put)
+    mesh = session.get_mesh()
+    ck = session.get_checkpoint()
+    start, restored = 0, None
+    if ck is not None:
+        tree = ck.to_pytree(device="cpu")
+        start, restored = tree["step"] + 1, tree["w"].numpy().tolist()
+    for i in range(start, config["steps"]):
+        _fail_once(config, 1, i)
+        w = device_put(torch.arange(16.0).reshape(4, 4) + i,
+                       NamedSharding(mesh, PartitionSpec("dp", None)))
+        ck = Checkpoint.from_pytree({"w": w, "step": i}, path=config["path"])
+        session.report({"step": i, "restored": restored,
+                        "local": w.to_local().numpy().tolist()},
+                       checkpoint=ck)
+
+
+def host_ops(config):
+    """A rank of a `HostArrayConfig` gang: `host_collective`'s allreduce
+    with every op and allgather of this rank's array, `allreduce_pytree` of
+    gradient-like tensors on the rank's device, then a `util.collective`
+    group on the same store (broadcast from the last rank, a send / recv
+    around the ring, a reducescatter of 7 rows); writes what each returned
+    to ``config["out"]/host_ops<rank>.json``."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.train import host_collective as hc
+    from ray_tpu_torch.util import collective as col
+    rank, world = session.get_world_rank(), session.get_world_size()
+    device = session.get_device()
+    x = host_ops_input(rank)
+    out = {op: hc.allreduce(x, op).tolist()
+           for op in ("sum", "mean", "max", "min")}
+    out["gather"] = [g.tolist() for g in hc.allgather(x)]
+    grads = {"w": torch.from_numpy(x).to(device),
+             "b": torch.from_numpy(x[0]).to(device, torch.bfloat16)}
+    red = hc.allreduce_pytree(grads, "mean")
+    out["tree"] = {"w": red["w"].cpu().tolist(),
+                   "b": red["b"].float().cpu().tolist(),
+                   "devices": [str(red["w"].device), str(red["b"].device)],
+                   "b_dtype": str(red["b"].dtype)}
+    col.init_collective_group(world, rank, store=hc._STORE[0],
+                              group_name="ranks")
+    out["broadcast"] = col.broadcast(x * (rank + 1), src_rank=world - 1,
+                                     group_name="ranks").tolist()
+    col.send(x + rank, (rank + 1) % world, group_name="ranks")
+    out["recv"] = col.recv((rank - 1) % world, group_name="ranks").tolist()
+    out["scatter"] = col.reducescatter(host_ops_rows(rank),
+                                       group_name="ranks").tolist()
+    col.barrier(group_name="ranks")
+    col.destroy_collective_group("ranks")
+    with open(os.path.join(config["out"], f"host_ops{rank}.json"), "w") as f:
+        json.dump(out, f)
+    session.report({"rank": rank, "world": world})
+
+
+def host_ops_input(rank):
+    import numpy as np
+    return np.random.default_rng(100 + rank).standard_normal(
+        (3, 5)).astype(np.float32)
+
+
+def host_ops_rows(rank):
+    import numpy as np
+    return np.arange(14, dtype=np.float32).reshape(7, 2) * (rank + 1)
+
+
 class Echo:
     """A plain actor for the actor layer's own tests."""
 
