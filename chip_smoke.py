@@ -191,6 +191,21 @@ runs these phases, each fatal on failure:
                steps bitwise the in-process loop's, 12/12/12 launches a
                step, the step split into card work and the host reduce, the
                reduce's bytes and GB/s, the most the store held.
+ 16. serve_gang — llama-1b at full width (bf16 weights from seed 0, flash
+               attention) served in this process on plain weights, then by
+               a one-member NCCL gang replica (serve.gang.start_gang_replica,
+               tests/torch_serve_gang_models.py's ShardedModel) whose member
+               places the same weights under FSDP_TP_RULES: forward of a
+               1 x 2048 prompt and generate (B 2, a 1000-token prompt, 32
+               new tokens), a warm request and 5 timed of each; every
+               forward summary (shape, mean, bit-pattern checksum, last
+               argmax) and every token bitwise the in-process ones, 16
+               flash_fwd launches and no backward launch a request counted
+               in the member; seconds from start_gang_replica to ready, the
+               medians through the gang, in the member and in process,
+               peak member memory; the leader SIGKILLed 0.05 s into a
+               generate (ActorDiedError, then ReplicaUnavailableError) and
+               no process left.
 The kernel phases also hold and time each kernel at the MoE train shape,
 the ViT shapes and the DT shapes (fp32, 60 tokens, one head of 128; the
 planted faults there include the causal mask left off and the first key
@@ -200,7 +215,8 @@ seconds.  Then one JSON line of the engine's numbers, one of the moe and
 vit phases' (with the phase seconds), one of the rl phase's, one of the
 offpolicy phase's, one of the rl_breadth phase's, one of the rl_rest
 phase's, one of the parallel phase's, one of the train_gang phase's, one
-of the host_dp phase's, one of the kernels, and last the device line.
+of the host_dp phase's, one of the serve_gang phase's, one of the kernels,
+and last the device line.
 Exits non-zero without a result when no CUDA device is present.
 """
 
@@ -369,6 +385,14 @@ GANG_DISK_FACTOR = 2.2
 HOST_DP_STEPS = 3
 GANG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "train_gang")
+# the serve_gang phase: llama-1b (bf16, flash) in a one-member gang replica
+# through forward (a 1 x 2048 prompt) and generate (B 2, a 1000-token
+# prompt, 32 new tokens), each request SERVE_GANG_REQUESTS times after one
+# warm request, through the gang and in this process
+SERVE_GANG_FORWARD = (1, 2048)
+SERVE_GANG_GENERATE = (2, 1000, 32)
+SERVE_GANG_REQUESTS = 5
+SERVE_GANG_KILL_BOUND_S = 30.0
 # the offpolicy phase: double DQN on CartPole at the JAX package's DQN row
 # (tpu_probe2.py:107-111, stage rl_dqn_tpu) and Rainbow at its sizes; PG on
 # CartPole at the PPO CartPole row's 128 x 128 (tpu_probe.py:219-220) with
@@ -4596,6 +4620,182 @@ def phase_host_dp(card, ops):
     return launches, out
 
 
+# -- serve_gang: llama-1b served by a gang replica ---------------------------
+# The callables live in tests/torch_serve_gang_models.py (torch and the port
+# only), which the member process imports by reference.
+
+
+def serve_gang_requests(ask, fwd_tokens, gen_payload):
+    """One warm forward and generate, then SERVE_GANG_REQUESTS of each
+    through ``ask(payload, method)``: → (replies by method, the warm ones
+    first, and the host wall ms of each timed one)."""
+    out = {"forward": [ask(fwd_tokens, "forward")],
+           "generate": [ask(gen_payload, "generate")]}
+    walls = {"forward": [], "generate": []}
+    for method, payload in (("forward", fwd_tokens),
+                            ("generate", gen_payload)):
+        for _ in range(SERVE_GANG_REQUESTS):
+            t0 = time.perf_counter()
+            out[method].append(ask(payload, method))
+            walls[method].append((time.perf_counter() - t0) * 1e3)
+    return out, walls
+
+
+def phase_serve_gang(card, ops):
+    """llama-1b at full width (bf16 weights from seed 0, flash attention)
+    served in this process on plain weights, then by a one-member NCCL gang
+    replica (``serve.gang.start_gang_replica``) whose member places the same
+    weights under FSDP_TP_RULES over its mesh: every forward summary (shape,
+    mean, the bit-pattern checksum, the last position's argmax) and every
+    generated token bitwise the in-process ones; 16 flash_fwd launches and
+    no backward launch a request, counted in the member.  Then the leader
+    SIGKILLed with a generate in flight: that request fails with
+    ActorDiedError, a later one with ReplicaUnavailableError, and
+    stop_gang_replica leaves no process."""
+    import multiprocessing
+    import signal
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_serve_gang_models as models
+    from ray_tpu_torch.core import actors
+    from ray_tpu_torch.exceptions import (ActorDiedError,
+                                          ReplicaUnavailableError)
+    from ray_tpu_torch.serve import gang
+
+    log("== serve_gang: llama-1b in a one-member NCCL gang replica "
+        "(weights placed under FSDP_TP_RULES) against the same requests "
+        "in this process; then the leader killed mid-request")
+    cfg_kw = dict(param_dtype=torch.bfloat16, attention_impl="flash")
+    cfg = models.model_config("llama-1b", cfg_kw)
+    rng = np.random.default_rng(0)
+    fwd_tokens = rng.integers(0, cfg.vocab_size, SERVE_GANG_FORWARD)
+    b, s, n = SERVE_GANG_GENERATE
+    gen_payload = {"prompt": rng.integers(0, cfg.vocab_size, (b, s)), "n": n}
+    expected = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+
+    params = models.plain_params(cfg, 0, "cuda")
+    plain, plain_walls = serve_gang_requests(
+        lambda payload, method: getattr(models, f"{method}_request")(
+            params, cfg, payload, torch.device("cuda")),
+        fwd_tokens, gen_payload)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    entry = {"callable_blob": actors.dumps_function(models.ShardedModel),
+             "init_args": ("llama-1b", cfg_kw, 0), "init_kwargs": {}}
+    t0 = time.perf_counter()
+    rep = gang.start_gang_replica("llama-1b", "serve-gang-0", entry,
+                                  {"gang_size": 1, "gang_mesh": "tp=1"})
+    ready_s = time.perf_counter() - t0
+    handle = rep["handle"]
+    try:
+        served, walls = serve_gang_requests(
+            lambda payload, method: actors.get(
+                handle.handle_request.remote((payload,), {}, method), 300),
+            fwd_tokens, gen_payload)
+        peak_gib = actors.get(handle.handle_request.remote(
+            (), {}, "peak_memory_gib"), 60)
+        # the death path: a generate in flight when the leader dies
+        inflight = handle.handle_request.remote((gen_payload,), {},
+                                                "generate")
+        time.sleep(0.05)
+        leader = rep["gang"][0]
+        os.kill(leader.pid, signal.SIGKILL)
+        killed = time.perf_counter()
+        try:
+            actors.get(inflight, SERVE_GANG_KILL_BOUND_S)
+            died = None
+        except ActorDiedError as e:
+            died = e
+        noticed_s = time.perf_counter() - killed
+        try:
+            actors.get(handle.handle_request.remote((fwd_tokens,), {},
+                                                    "forward"), 30)
+            later = None
+        except ReplicaUnavailableError as e:
+            later = e
+    finally:
+        gang.stop_gang_replica(rep)
+    left = multiprocessing.active_children()
+
+    def med(xs):
+        return float(np.median(xs))
+
+    out = {"ready_s": ready_s, "peak_member_gib": peak_gib,
+           "forward_ms": {"gang": med(walls["forward"]),
+                          "in_process": med(plain_walls["forward"]),
+                          "member": med([r["member_ms"]
+                                         for r in served["forward"][1:]])},
+           "generate_ms_per_token": {
+               "gang": med(walls["generate"]) / n,
+               "in_process": med(plain_walls["generate"]) / n,
+               "member": med([r["member_ms"]
+                              for r in served["generate"][1:]]) / n},
+           "forward_summary": {k: served["forward"][0][k] for k in (
+               "shape", "mean", "checksum", "argmax_last")},
+           "generated": served["generate"][0]["tokens"],
+           "launches_per_request": {
+               method: [r["launches"] for r in served[method]]
+               for method in served},
+           "killed_leader": {"error": repr(died),
+                             "noticed_after_s": noticed_s,
+                             "later": repr(later)},
+           "processes_left": [p.pid for p in left]}
+    log(f"  start_gang_replica to ready {ready_s:.2f} s (spawn, imports, "
+        f"NCCL group, llama-1b placed); peak member memory "
+        f"{peak_gib:.2f} GiB [{card}]")
+    log(f"  forward 1 x {SERVE_GANG_FORWARD[1]}: "
+        f"{out['forward_ms']['gang']:.2f} ms through the gang, "
+        f"{out['forward_ms']['member']:.2f} in the member, "
+        f"{out['forward_ms']['in_process']:.2f} in process; generate B {b}, "
+        f"{s}-token prompt, {n} new: "
+        f"{out['generate_ms_per_token']['gang']:.3f} ms/token through the "
+        f"gang, {out['generate_ms_per_token']['member']:.3f} in the member, "
+        f"{out['generate_ms_per_token']['in_process']:.3f} in process "
+        f"(medians of {SERVE_GANG_REQUESTS}) [{card}]")
+    log(f"  forward summary {out['forward_summary']}; generated "
+        f"{out['generated']}; launches a request "
+        f"{served['forward'][0]['launches']} (counted in the member)")
+    log(f"  leader SIGKILLed 0.05 s into a generate: {died!r} after "
+        f"{noticed_s:.3f} s; the next request {later!r}; processes left "
+        f"{out['processes_left']} [{card}]")
+    keys = ("shape", "mean", "checksum", "argmax_last")
+    want = {k: plain["forward"][0][k] for k in keys}
+    if any({k: r[k] for k in keys} != want
+           for r in plain["forward"] + served["forward"]):
+        raise AssertionError("serve_gang: a forward summary is not the "
+                             "in-process one bitwise")
+    tokens = plain["generate"][0]["tokens"]
+    if any(r["tokens"] != tokens
+           for r in plain["generate"] + served["generate"]):
+        raise AssertionError("serve_gang: generated tokens differ from the "
+                             "in-process ones")
+    if np.asarray(tokens).shape != (b, n) or not np.isfinite(
+            out["forward_summary"]["mean"]) or out["forward_summary"][
+            "shape"] != [*SERVE_GANG_FORWARD, cfg.vocab_size]:
+        raise AssertionError(f"serve_gang: shapes {out['forward_summary']}")
+    if any(r["rank"] != 0 or r["launches"] != expected
+           for method in served for r in served[method]) or any(
+            r["launches"] != expected
+            for method in plain for r in plain[method]):
+        raise AssertionError(f"serve_gang: launches a request "
+                             f"{out['launches_per_request']}, expected "
+                             f"{expected}")
+    if died is None or died.exitcode != -signal.SIGKILL \
+            or noticed_s > SERVE_GANG_KILL_BOUND_S or later is None:
+        raise AssertionError("serve_gang: the leader's death was not "
+                             "reported as it should be")
+    if left:
+        raise AssertionError(f"serve_gang: a process is left: {left}")
+    # every request through the gang, the warm ones included
+    launches = {name: sum(r["launches"][name] for method in served
+                          for r in served[method]) for name in expected}
+    return launches, out
+
+
 def top_kernels(by_name, n):
     """The ``n`` kernels with the most device time, then the port's own
     (flash_*) kernels that are not among them."""
@@ -4920,6 +5120,8 @@ def main():
     by_path["train_gang"], train_gang = timed("train_gang", phase_train_gang,
                                               card, ops)
     by_path["host_dp"], host_dp = timed("host_dp", phase_host_dp, card, ops)
+    by_path["serve_gang"], serve_gang = timed("serve_gang", phase_serve_gang,
+                                              card, ops)
     by_path.update(moe_paths)
     by_path.update(vit_paths)
     log(f"  phase seconds: {json.dumps(seconds)}")
@@ -4941,6 +5143,8 @@ def main():
     print(json.dumps({"train_gang": train_gang,
                       "seconds": seconds["train_gang"]}))
     print(json.dumps({"host_dp": host_dp, "seconds": seconds["host_dp"]}))
+    print(json.dumps({"serve_gang": serve_gang,
+                      "seconds": seconds["serve_gang"]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,9 @@ MAML, Dreamer, DT, AlphaZero, SlateQ); and the parallel layer
 bootstrap) with ring and Ulysses attention; the Train gang on the port's
 own actor layer (``train``), with host collectives (``HostArrayConfig``,
 ``util.collective``) on a store, array staging (``core.serialization``)
-and sharded tree checkpoints (``air.Checkpoint.from_pytree``).
+and sharded tree checkpoints (``air.Checkpoint.from_pytree``); gang
+replicas (``serve.gang``: one replica over a process group, serving from
+placed weights), with the chaos plan reaching every spawned actor.
 ``ROADMAP.md`` lists what is still to come: the rest of the multi-process
 runtime pieces.
 """

@@ -11,7 +11,9 @@ order.  ``get(futures, timeout)`` always takes a timeout.  A process that
 ends, whatever its exit code, fails every pending and later call at once
 with `ActorDiedError` (its pid and exit code), found from the pipe's end of
 file and the process sentinel, never by waiting out a timeout.  ``kill``
-sends SIGTERM, then SIGKILL after a grace period, then joins.
+sends SIGTERM, then SIGKILL after a grace period, then joins.  A chaos plan
+armed in the parent (`util.fault_injection.arm`) arms every actor spawned
+after it.
 
 Calls, arguments and results cross the pipe as `pickle` bytes (a result
 pickled twice, so one that cannot be unpickled here fails its own call and
@@ -79,13 +81,16 @@ def _error_reply(e: Exception) -> Exception:
 
 
 def _actor_main(conn, env: Dict[str, Any], blob: bytes, parent: int) -> None:
-    """The actor process: apply ``env``, build the instance, then answer
-    calls until the parent's end of the pipe closes or the parent is gone.
-    A constructor that raised makes every call raise its error; an exit
-    or interrupt raised in a call ends the process, as it would any other
+    """The actor process: apply ``env``, arm the chaos plan it inherited
+    (``RAY_TPU_CHAOS_PLAN``), build the instance, then answer calls until
+    the parent's end of the pipe closes or the parent is gone.  A
+    constructor that raised makes every call raise its error; an exit or
+    interrupt raised in a call ends the process, as it would any other
     program."""
     for key, value in env.items():
         os.environ[str(key)] = str(value)
+    from ..util import fault_injection
+    fault_injection.maybe_arm_from_config()
     instance, init_error = None, None
     try:
         cls, args, kwargs = pickle.loads(blob)

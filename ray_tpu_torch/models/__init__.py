@@ -34,6 +34,7 @@ from .transformer import (  # noqa: F401
     param_shapes,
     params_axes,
     remat_policy,
+    whole_params,
 )
 from .vit import (  # noqa: F401
     ViTConfig,

@@ -15,6 +15,11 @@ Two families of functions:
   step over every slot) and the speculative pair `draft_propose_slots` /
   `verify_step_slots`.
 
+The whole-prompt functions and `prefill_chunk` take parameters placed as
+DTensors (`parallel.shard_pytree`) too: each gathers them whole once a call
+(`transformer.whole_params`) and keeps the KV cache a plain tensor on every
+rank.
+
 Unlike the JAX package's immutable arrays, K and V are written in place: a
 call returns the cache with the same K/V tensors and a new ``pos``, and the
 cache passed in is not to be reused.  ``pos`` itself is never written in
@@ -43,7 +48,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops.rotary import apply_rotary, rotary_angles
 from .transformer import (TransformerConfig, _embed, _ffn, _heads,
                           _layer_kv, _layer_params, _norm, _project_kv,
-                          _unembed)
+                          _unembed, whole_params)
 
 Params = Any
 # {"k","v": [L, B, max_len, hk, hd], "pos": int}; a slot cache's "pos" is
@@ -72,6 +77,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     """Run the prompt; → (logits of the LAST position [B, vocab] fp32,
     cache holding the prompt's K/V with pos = prompt length)."""
     _check_decodable(cfg)
+    params = whole_params(params)
     s = tokens.shape[1]
     if s > cache["k"].shape[2]:
         raise ValueError(f"prompt length {s} exceeds cache capacity "
@@ -127,6 +133,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: KVCache,
     so the step rewrites the last cache row with the last row's rotary
     angles, attends over the whole cache, and ``pos`` still advances."""
     _check_decodable(cfg)
+    params = whole_params(params)
     dt = cfg.dtype
     pos = cache["pos"]
     max_len = cache["k"].shape[2]
@@ -168,6 +175,7 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, cache: KVCache,
     ``dynamic_update_slice`` / ``dynamic_slice`` do; the mask keeps the
     unshifted positions."""
     _check_decodable(cfg)
+    params = whole_params(params)
     b, c = tokens.shape
     dt = cfg.dtype
     pos = int(cache["pos"])
@@ -446,7 +454,9 @@ def generate(params: Params, prompt, *, cfg: TransformerConfig,
     Greedy when ``temperature == 0`` (default), else temperature / top-k
     sampling from ``generator`` (seed 0 on the parameters' device when
     None).  Token i is sampled from the logits of the step before it, so
-    only ``max_new_tokens - 1`` decode passes run."""
+    only ``max_new_tokens - 1`` decode passes run.  Placed weights are
+    gathered whole once for the call (`whole_params`)."""
+    params = whole_params(params)
     device = params["embed"]["tok"].device
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
     b, s = prompt.shape

@@ -21,7 +21,8 @@ stack runs as a GPipe pipeline over ``pp`` (`parallel.pipeline`).  The
 loss is the global batch's on every rank.  `params_axes` gives the logical
 axes `parallel.shard_pytree` places the weights by; `make_train_step`
 gathers placed weights (DTensors) for the products and hands each gradient
-back in its weight's placement.
+back in its weight's placement; the serving entry points gather them whole
+once a call (`whole_params`).
 """
 
 from __future__ import annotations
@@ -589,12 +590,32 @@ def _unembed(params: Params, cfg: TransformerConfig) -> torch.Tensor:
     return w.to(cfg.dtype)
 
 
+def whole_params(params: Params) -> Params:
+    """``params`` with every placed weight (a DTensor, as
+    `parallel.shard_pytree` leaves it) gathered whole by
+    `gather_for_compute`, the rule the sharded train step uses; a tree of
+    plain tensors comes back as it is.  The serving entry points
+    (`forward_with_aux`, `models.prefill`, `prefill_chunk`, `decode_step`,
+    `generate`) call it once a call, so a model placed over a gang's mesh
+    serves as GSPMD serves the JAX package's placed weights: each rank runs
+    the whole arithmetic on the gathered weights, and its results are the
+    plain weights' bitwise at world size 1."""
+    leaves = param_leaves(params)
+    if not any(isinstance(p, DTensor) for p in leaves):
+        return params
+    return _with_leaves(params, [
+        gather_for_compute(p, p.device_mesh, ())
+        if isinstance(p, DTensor) else p for p in leaves])
+
+
 def forward_with_aux(params: Params, tokens: torch.Tensor,
                      cfg: TransformerConfig
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [batch, seq] → (logits [batch, seq, vocab] fp32, mean router
     aux loss).  Under a mesh ``tokens`` are this rank's rows, and the
-    logits come back over the whole sequence on every rank."""
+    logits come back over the whole sequence on every rank.  Placed
+    weights are gathered whole first (`whole_params`)."""
+    params = whole_params(params)
     lay = _layout(cfg)
     x, aux = _trunk(params, tokens, cfg, lay)
     # fp32 accumulation of cfg.dtype operands, as the JAX package's

@@ -905,13 +905,23 @@ class DecodeSessionCore:
     def engine(self) -> Optional[ContinuousBatchingEngine]:
         """The continuous-batching engine, created on first use (slot
         cache memory is only paid by cores that serve).  Creation is
-        locked: two concurrent `start` ops must not make two engines."""
+        locked: two concurrent `start` ops must not make two engines.
+        Inside a replica the engine takes its deployment's and replica's
+        names (`replica.get_replica_context`); elsewhere, a gang member
+        included, ``"decode"`` / ``"local"``."""
         if self._engine is None and self._engine_cfg is not None:
             with self._lock:
                 if self._engine is None:
+                    name, tag = "decode", "local"
+                    try:
+                        from .replica import get_replica_context
+                        ctx = get_replica_context()
+                        name, tag = ctx.deployment, ctx.replica_tag
+                    except RuntimeError:
+                        pass
                     self._engine = ContinuousBatchingEngine(
                         self.cfg, self.max_len, self.params,
-                        self._engine_cfg)
+                        self._engine_cfg, name=name, replica_tag=tag)
         return self._engine
 
     def handle(self, req: Dict[str, Any]) -> Dict[str, Any]:

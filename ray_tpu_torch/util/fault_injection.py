@@ -25,15 +25,29 @@ action raises, and the engine falls back to a plain step) and
 ``train.checkpoint_register`` in the Train checkpoint manager
 (`fs_point`: an injected ``OSError``, the previous checkpoint kept).  ``KNOWN_SITES``
 is the JAX package's whole table, so a plan validates the same in both
-packages.  Spreading a plan over processes (the controller's KV, the
-``chaos_plan`` setting) waits for the port's runtime.
+packages.
+
+A plan armed in one process spreads to the processes it spawns later, as
+the JAX package's ``chaos_plan`` setting does: `arm` writes the plan into
+``RAY_TPU_CHAOS_PLAN``, which a spawned child inherits, and every actor of
+the port (`core.actors`: gang members, Train ranks) arms from it
+(`maybe_arm_from_config`) before it builds its instance; `disarm` takes
+the variable out again, so later spawns start unarmed; `chaos_env` is the
+env block that arms a process started some other way.  With no controller
+in the port, ``once`` holds per process: each process counts its own fires,
+so a ``once`` rule fires at most once in every process the plan reaches,
+and `local_claim` (the JAX package's claim when no controller answers) is
+the only claim a site can take.  The runtime-wide pieces (the
+controller's KV and its pubsub channel) are not ported.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import random
 import re
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -41,6 +55,8 @@ from typing import Any, Dict, List, Optional
 from . import tracing
 
 METRIC_NAME = "ray_tpu_chaos_injected_total"
+#: the variable that carries an armed plan to the processes spawned later
+ENV_VAR = "RAY_TPU_CHAOS_PLAN"
 
 _FS_ACTIONS = frozenset({"error", "enospc", "eio"})
 
@@ -94,6 +110,7 @@ ACTIVE: Optional["FaultPlan"] = None
 
 _lock = threading.Lock()
 _counter = None            # metrics.Counter, registered only while armed
+_local_claims: set = set()  # per-process `once` claims
 
 
 class FaultRule:
@@ -226,8 +243,9 @@ def fs_point(site: str, key: str = "") -> None:
 
 def arm(plan: Any) -> "FaultPlan":
     """Arm the chaos layer in this process.  ``plan`` is the rule list (or
-    its JSON text).  Re-arming replaces the plan and resets rule
-    counters."""
+    its JSON text).  Re-arming replaces the plan and resets rule counters.
+    The plan is also written into ``RAY_TPU_CHAOS_PLAN``, so the processes
+    this one spawns later arm with it."""
     global ACTIVE
     if isinstance(plan, (str, bytes)):
         plan = json.loads(plan)
@@ -235,12 +253,15 @@ def arm(plan: Any) -> "FaultPlan":
     with _lock:
         ACTIVE = fp
         _ensure_counter()
+    os.environ[ENV_VAR] = json.dumps(fp.raw)
     return fp
 
 
 def disarm() -> None:
-    """Disable the layer and deregister its counter: a disabled process's
-    metrics do not mention the chaos metric."""
+    """Disable the layer, deregister its counter (a disabled process's
+    metrics do not mention the chaos metric), drop this process's ``once``
+    claims and take the plan out of ``RAY_TPU_CHAOS_PLAN``: processes
+    spawned later start unarmed."""
     global ACTIVE, _counter
     with _lock:
         ACTIVE = None
@@ -249,6 +270,41 @@ def disarm() -> None:
             with metrics._lock:
                 metrics._registry.pop(METRIC_NAME, None)
             _counter = None
+        _local_claims.clear()
+    os.environ.pop(ENV_VAR, None)
+
+
+def maybe_arm_from_config() -> None:
+    """Arm from ``RAY_TPU_CHAOS_PLAN`` (set by `arm` in a parent, or by
+    `chaos_env`); a no-op when it is empty or a plan is already armed (so
+    a live plan's counters are never reset).  A malformed plan is reported
+    and ignored, as in the JAX package."""
+    if ACTIVE is not None:
+        return
+    raw = os.environ.get(ENV_VAR, "")
+    if not raw:
+        return
+    try:
+        arm(raw)
+    except (ValueError, KeyError, TypeError) as e:
+        print(f"WARNING: ignoring malformed chaos plan: {e}",
+              file=sys.stderr, flush=True)
+
+
+def local_claim(rule_id: str) -> bool:
+    """Claim a ``once`` rule in this process: True the first time, False
+    after (the JAX package's fallback when no controller answers, and the
+    port's only claim)."""
+    with _lock:
+        if rule_id in _local_claims:
+            return False
+        _local_claims.add(rule_id)
+        return True
+
+
+def chaos_env(plan: List[Dict[str, Any]]) -> Dict[str, str]:
+    """The env block that arms a spawned process with ``plan``."""
+    return {ENV_VAR: json.dumps(plan)}
 
 
 # ---------------------------------------------------------------- validation

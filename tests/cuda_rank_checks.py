@@ -22,8 +22,15 @@ one rank; a `HostArrayConfig` gang of four (`host_collective`'s
 allreduce with every op, allgather, `allreduce_pytree` of card leaves, and
 a `util.collective` group: broadcast, send / recv, an uneven
 reducescatter) against the JAX reducer's arithmetic written out in numpy;
-no process left after.  Prints a line a check, then one
-JSON object; exits 1 where a check fails.
+no process left after.  Last the serve gang (`serve.gang`, the
+`torch_serve_gang_models.Generator` callable): tp=2 and tp=4 gang replicas
+of a small fp32 model at head dim 64 (so the forward kernel runs on the
+cards), weights placed under FSDP_TP_RULES: the last position's logits
+within OUT_TOL of the plain one-rank forward in this process, the greedy
+tokens equal, one forward launch a layer a request; a follower killed in
+the tp=2 gang fails the next request with ActorDiedError and a later one
+with ReplicaUnavailableError; no process left.  Prints a line a check, then
+one JSON object; exits 1 where a check fails.
 """
 
 from __future__ import annotations
@@ -50,6 +57,9 @@ MOE_MODEL = dict(MODEL, n_experts=4, expert_top_k=2)
 DENSE = dict(max_seq_len=32, attention_impl="reference")
 PIPE = dict(DENSE, pp_stages=2, pp_microbatches=2)
 MOE = dict(DENSE, n_experts=4, expert_top_k=2)
+# the serve gang's model: head dim 64 (d 256, 4/2 heads), fp32, flash
+SERVE_GANG = dict(d_model=256, n_heads=4, n_kv_heads=2, max_seq_len=128,
+                  attention_impl="flash")
 DDPPO = dict(num_envs=8, rollout_length=8, num_sgd_epochs=2,
              num_minibatches=2, lr=3e-3, seed=0, hidden=(8,))
 # name, kind, causal, gradients, (b, s, h, hkv, d); Ulysses at head dim
@@ -323,6 +333,86 @@ def host_checks(fit, out_dir, device):
                 "ok": group_ok}}
 
 
+def serve_gang_checks(device):
+    """→ {check: {numbers..., "ok": bool}} of tp=2 and tp=4 gang replicas
+    (members on their cards, or gloo with ``device`` "cpu") against the
+    plain one-rank model in this process."""
+    import multiprocessing
+    import os
+    import signal
+
+    import torch_serve_gang_models as models
+    from ray_tpu_torch.core import actors
+    from ray_tpu_torch.exceptions import (ActorDiedError,
+                                          ReplicaUnavailableError)
+    from ray_tpu_torch.models import forward, generate
+    from ray_tpu_torch.serve import gang
+
+    cfg_kw = dict(SERVE_GANG, dtype=torch.float32)
+    cfg = models.model_config("tiny", cfg_kw)
+    weights = _weights(SERVE_GANG)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 64))
+    payload = {"prompt": rng.integers(0, cfg.vocab_size, (2, 16)), "n": 8}
+    here = "cuda:0" if device == "cuda" else "cpu"
+    plain = models.plain_params(cfg, weights, here)
+    with torch.no_grad():
+        want = forward(plain, torch.from_numpy(tokens).to(here),
+                       cfg)[:, -1].cpu().numpy()
+        want_toks = generate(plain, payload["prompt"], cfg=cfg,
+                             max_new_tokens=payload["n"]).tolist()
+    fwd = {"flash_fwd": cfg.n_layers if device == "cuda" else 0,
+           "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    entry = {"callable_blob": actors.dumps_function(models.Generator),
+             "init_args": ("tiny", cfg_kw, weights), "init_kwargs": {}}
+    out = {}
+    for size in (2, 4):
+        rep = gang.start_gang_replica(
+            "gang_check", f"tp{size}", entry,
+            {"gang_size": size, "gang_mesh": f"tp={size}"},
+            device=None if device == "cuda" else "cpu")
+        try:
+            def ask(*args, method=None, timeout=300.0):
+                return actors.get(rep["handle"].handle_request.remote(
+                    args, {}, method), timeout)
+            logits = ask(tokens, method="logits")[:, -1]
+            err, close = _close(logits, want, **OUT_TOL)
+            got = ask(payload)
+            placed = any("Shard" in p for p in ask(
+                method="placements")["wq"])
+            check = {"max_abs_err": err, "tokens_equal":
+                     got["tokens"] == want_toks, "launches": got["launches"],
+                     "placed_on_tp": placed}
+            check["ok"] = (close and check["tokens_equal"] and placed
+                           and got["rank"] == 0 and got["launches"] == fwd)
+            if size == 2:
+                follower = rep["gang"][1]
+                os.kill(follower.pid, signal.SIGKILL)
+                t0 = time.monotonic()
+                try:
+                    ask(payload, timeout=60)
+                    died = None
+                except ActorDiedError as e:
+                    died = e
+                check["noticed_after_s"] = time.monotonic() - t0
+                try:
+                    ask(payload, timeout=30)
+                    later = None
+                except ReplicaUnavailableError as e:
+                    later = e
+                check["killed_follower"] = repr(died)
+                check["ok"] = (check["ok"] and died is not None
+                               and died.pid == follower.pid
+                               and later is not None)
+        finally:
+            gang.stop_gang_replica(rep)
+        out[f"serve_gang:tp={size}"] = check
+    left = multiprocessing.active_children()
+    out["serve_gang:no_process_left"] = {"left": [p.pid for p in left],
+                                         "ok": not left}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -348,6 +438,7 @@ def main():
                         device=args.device)
     verdict = judge(dict(jobs), results, args.device)
     verdict.update(trainer_checks(args.device, args.out))
+    verdict.update(serve_gang_checks(args.device))
     seconds = time.perf_counter() - t0
     for name, res in verdict.items():
         print(f"{'ok  ' if res['ok'] else 'FAIL'} {name}: {res}", flush=True)

@@ -365,7 +365,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "          'train.worker_group', 'train.trainer',\n"
         "          'train.checkpointing', 'train.host_collective',\n"
         "          'util.collective', 'core.serialization',\n"
-        "          'air.checkpoint'):\n"
+        "          'air.checkpoint', 'serve.gang', 'serve.replica'):\n"
         "    assert 'ray_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
